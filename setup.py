@@ -7,8 +7,10 @@ setup(
         "TPU-native JAX/XLA/Pallas multimodal vision-language framework "
         "with the capabilities of Aleph-Alpha/magma"
     ),
-    packages=find_packages(include=["magma_tpu", "magma_tpu.*"]),
-    package_data={"magma_tpu.native": ["loader.cc"]},
+    packages=find_packages(include=["magma_tpu", "magma_tpu.*",
+                                    "magma_tpu_torch", "magma_tpu_torch.*"]),
+    package_data={"magma_tpu.native": ["loader.cc"],
+                  "magma_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",
