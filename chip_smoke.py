@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``magma_tpu_torch``) through its caption
-path once on one NVIDIA GPU, and check what comes out.
+paths once on one NVIDIA GPU, and check what comes out.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -8,23 +8,38 @@ Phases (any failed check or exception ends the run with a non-zero exit):
 
 0. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and convolutions.
-1. Build: the CUDA kernels from ``magma_tpu_torch/csrc`` (nvcc, sm_90a),
-   with ptxas's resource report.
-2. Each kernel against its plain PyTorch version on the same bf16 inputs at
-   the caption prefill's shapes, and both timed (median of CUDA events).
-3. The caption path at full width: ``Magma`` from configs/MAGMA_v1.yml
+1. Build: the CUDA kernels from ``magma_tpu_torch/csrc`` (one nvcc per
+   source, all started together, sm_90a), with ptxas's resource report.
+2. K1 (flash attention) against its plain PyTorch version on the same bf16
+   inputs at the caption prefill's shapes; kernel, plain version and one
+   ``scaled_dot_product_attention`` call with the same boolean mask timed
+   (median of CUDA events).
+2b. The int8 kernels against their plain versions on seeded bf16/int8
+   inputs at the slice's shapes: K2b (in_proj) at M = 1, 5, 37, 192, K4a
+   (o_proj + fc_out) at M = 1, 192, K5 (the adapter) at M = 1, 64, K2a
+   (the head) at M = 1; each timed with its plain version and a bf16
+   ``torch.matmul`` over weights dequantised outside the timed call.
+   Timed calls cycle through the layers of a stack larger than the 50 MB
+   L2, as decode reads each layer's weights once per token.
+3. The bf16 caption path at full width: ``Magma`` from configs/MAGMA_v1.yml
    (GPT-J 6B + mlp adapters + CLIP RN50x16 at 384 px) with bf16 weights
    drawn from a seed on the GPU, answering three requests of one image and
-   "Describe the painting:" (one greedy, two sampled).  Kernel launch
-   counts are reset just before and read just after.
-4. The greedy request's prefill logits through the kernel against the
-   plain attention path, and the greedy tokens of both.
+   "Describe the painting:" (one greedy, two sampled).  Launch counts are
+   set to 0 just before and read just after.
+4. The greedy request's prefill logits through K1 against the plain
+   attention path, and the greedy tokens of both.
+5. The int8 caption path: the same model after
+   ``quantize_for_serving(bits=8)`` answers the same three requests; every
+   kernel's launches are checked exactly against the steps taken; the
+   greedy prefill logits are held against the bf16 path over the int8
+   packs dequantised back to bf16 (W s).
 
 The last two lines are one JSON object of the kernels' numbers and one
 JSON object saying the run is ok and on which device.
 """
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -38,6 +53,9 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "MAGMA_v1.yml"
 PROMPT = "Describe the painting:"
 MAX_STEPS = 32
+# H100 SXM data sheet: HBM bytes/s and dense bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 # bf16 O: both versions round to bf16 at the end and the kernel also rounds
 # P before the PV product, so two fp32 values near a rounding boundary land
 # one bf16 ulp apart (2^-7 relative at most); an absolute floor covers
@@ -50,6 +68,17 @@ LSE_TOL = 1e-3
 # at different points, ~2^-8 relative per layer, compounded over 28
 # layers of a bf16 residual stream
 LOGIT_TOL = 0.25
+# int8 kernel path vs the bf16 path over the dequantised packs: the bf16
+# path rounds each W s to bf16 (2^-9 relative per weight) and both round
+# every product's output to bf16 at their own points, compounded over 28
+# layers; PR 1's two bf16 paths of the same structure differed by 0.074
+INT8_LOGIT_TOL = 0.5
+INT8_KERNELS = {  # wrapper name in ops/quant.py -> (JSON name, TPU kernel it replaces)
+    "int8_matmul_kernel": ("int8_matmul", "magma_tpu/ops/quant.py:65"),
+    "int8_matmul_stacked_kernel": ("int8_matmul_stacked", "magma_tpu/ops/quant.py:123"),
+    "dual_matmul_kernel": ("int8_dual", "magma_tpu/ops/quant.py:529"),
+    "fused_adapter_kernel": ("fused_adapter", "magma_tpu/ops/quant.py:813"),
+}
 
 
 def fail(msg: str) -> int:
@@ -80,6 +109,43 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    each byte moved once at the HBM rate or each operation at the bf16
+    tensor-core rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _kernel_events(torch, prof):
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(torch, fn, match: str, calls: int = 20):
+    """Mean device time (ms) a call of the kernels whose name contains
+    ``match``, from torch.profiler over ``calls`` calls: the kernel alone,
+    without the host time that CUDA events around a short call include.
+    None when the profiler records no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in _kernel_events(torch, prof) if match in e.name]
+    return sum(times) / calls / 1e3 if times else None
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured (the profiler saw no such kernel)" if ms is None else f"{ms:.4f} ms"
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -90,6 +156,7 @@ def phase_device(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmul and cuDNN")
+    return smi
 
 
 def phase_build():
@@ -105,7 +172,9 @@ def phase_build():
 
 
 def phase_kernel(torch):
-    """K1 vs its plain version.  Returns (max O error, kernel ms, plain ms)."""
+    """K1 vs its plain version.  Returns its JSON entry (launches unset)."""
+    import torch.nn.functional as F
+
     from magma_tpu_torch.ops.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
 
@@ -145,29 +214,252 @@ def phase_kernel(torch):
             check(torch.equal(lse[~valid], ref_lse[~valid]), "K1: masked-row lse differs")
         worst = max(worst, o_err)
         if timed is None:
-            timed = (q, k, v, kw)
-    q, k, v, kw = timed
+            timed = (q, k, v, kw, kv_len[0])
+    q, k, v, kw, kv = timed
+    b, s, h, _ = q.shape
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw))
+    dev_ms = device_ms(torch, lambda: flash_attention_fwd(q, k, v, **kw), "flash_fwd_kernel")
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw))
-    print(f"[K1] slice prefill shape (b*h=16, s=256, hd=256): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms (median of 50, CUDA events)")
-    return worst, ms, plain_ms
+    # the library call: SDPA over (b, h, s, hd) views with the same boolean
+    # mask (causal and kv_len), built outside the timed call
+    cols = torch.arange(s, device=dev)
+    mask = ((cols[None, :] <= cols[:, None]) & (cols < kv)[None, :])[None, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=kw["scale"])
+    lib_err = (lib_o.transpose(1, 2).float() - flash_attention_plain(q, k, v, **kw)[0].float())
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                            scale=kw["scale"]))
+    # this run's work: each attended (query, key) pair costs a 2 hd QK^T and
+    # a 2 hd PV product per head; bytes: Q and O in bf16 at all s rows, K and
+    # V only at the kv_len rows the kernel reads, and the fp32 lse
+    pairs = sum(min(i + 1, kv) for i in range(s))
+    kv_bytes = 2 * b * kv * h * hd * k.element_size()
+    bound_ms, bound_by = bound(nbytes(q, q) + kv_bytes + b * h * s * 4, 4 * hd * pairs * h * b)
+    print(f"[K1] slice prefill shape (b*h=16, s=256, hd=256, kv_len={kv}): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, SDPA with the boolean mask {lib_ms:.4f} ms "
+          f"(max|SDPA-plain| {lib_err.abs().max().item():.3e}), bound {bound_ms:.4f} ms "
+          f"({bound_by}) (median of 50, CUDA events); kernel alone {_fmt_ms(dev_ms)} "
+          f"(profiler)")
+    return {"name": "flash_attn_fwd", "route": "cuda",
+            "source": "magma_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "magma_tpu/ops/flash_attention.py:75",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _sum_tol(x, wq, s, k):
+    """Both versions sum k exact fp32 products (bf16 x int8) in another
+    order; each sum is within k 2^-24 of the sum of |terms|, so the two are
+    within twice that."""
+    return 2 * k * 2.0 ** -24 * (x.float().abs() @ wq.float().abs()) * s.abs()
+
+
+def phase_int8_kernels(torch):
+    """K2a, K2b, K4a and K5 against their plain versions.  Returns their
+    JSON entries by wrapper name (launches unset)."""
+    from magma_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    D, F_, V, DH = 4096, 16384, 50304, 1024
+    N_IN = 3 * D + F_
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=g, device=dev) * 2e-4 + 1e-5
+
+    def deq(wq, s):  # the library's weight: W s in bf16, made before timing
+        return (wq.float() * s[..., None, :]).to(torch.bfloat16)
+
+    entries = {}
+
+    def report(wrapper, label, m, err, tol_ok, timing=None):
+        print(f"[{label}] M={m}: max|kernel-plain| {err:.3e}, within tolerance: {tol_ok}")
+        check(tol_ok, f"{label} M={m}: kernel differs from its plain version by {err}")
+        entry = entries.setdefault(wrapper, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if timing is not None:
+            entry.update(timing)
+
+    def timing(label, m, kernel, plain, library, n_bytes, flops, match):
+        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain, iters=10), cuda_ms(library)
+        dev_ms = device_ms(torch, kernel, match)
+        bound_ms, bound_by = bound(n_bytes, flops)
+        share = "" if dev_ms is None else f", the kernel alone at {bound_ms / dev_ms:.2%} of it"
+        print(f"[{label}] M={m} timing: kernel {ms:.4f} ms a call (CUDA events, wrapper "
+              f"included), kernel alone {_fmt_ms(dev_ms)} (profiler), plain {plain_ms:.4f} ms, "
+              f"library (bf16 torch.matmul over pre-dequantised W) {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}){share}")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    # K2b: the in_proj, 4 layers (470 MB of int8) cycled
+    L = 4
+    wq, s = int8(L, D, N_IN), scales(L, N_IN)
+    w_lib = [deq(wq[i], s[i]) for i in range(L)]
+    for m in (1, 5, 37, 192):
+        x = bf16(m, D)
+        out = quant.int8_matmul_stacked(x, wq, s, 1)
+        ref = quant.int8_matmul_stacked_plain(x, wq, s, 1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        tm = None
+        if m in (1, 192):
+            it = itertools.cycle(range(L))
+            tm = timing("K2b in_proj", m, lambda: quant.int8_matmul_stacked(x, wq, s, next(it)),
+                        lambda: quant.int8_matmul_stacked_plain(x, wq, s, next(it)),
+                        lambda: torch.matmul(x, w_lib[next(it)]),
+                        nbytes(x, wq[0], s[0]) + m * N_IN * 4, 2 * m * D * N_IN,
+                        "gemv_kernel" if m <= 8 else "mma_kernel")
+        # the JSON line carries decode's (M=1) numbers; the log has M=192's
+        report("int8_matmul_stacked_kernel", "K2b in_proj", m, err.max().item(),
+               bool((err <= _sum_tol(x, wq[1], s[1], D)).all()), tm if m == 1 else None)
+    del wq, s, w_lib
+
+    # K4a: o_proj + fc_out, 4 layers (335 MB) cycled
+    wq, s = int8(L, D + F_, D), scales(L, 2, D)
+    lib_o = [deq(wq[i, :D], s[i, 0]) for i in range(L)]
+    lib_f = [deq(wq[i, D:], s[i, 1]) for i in range(L)]
+    for m in (1, 192):
+        ctx, h = bf16(m, D), bf16(m, F_)
+        w = {"q": wq, "s": s}
+        a, mo = quant.dual_matmul_stacked(ctx, h, w, 2)
+        ra, rm = quant.dual_matmul_stacked_plain(ctx, h, w, 2)
+        torch.cuda.synchronize()
+        ea, em = (a - ra).abs(), (mo - rm).abs()
+        ok = bool((ea <= _sum_tol(ctx, wq[2, :D], s[2, 0], D)).all()
+                  and (em <= _sum_tol(h, wq[2, D:], s[2, 1], F_)).all())
+        it = itertools.cycle(range(L))
+
+        def library():
+            i = next(it)
+            return torch.matmul(ctx, lib_o[i]), torch.matmul(h, lib_f[i])
+
+        tm = timing("K4a out_proj", m, lambda: quant.dual_matmul_stacked(ctx, h, w, next(it)),
+                    lambda: quant.dual_matmul_stacked_plain(ctx, h, w, next(it)), library,
+                    nbytes(ctx, h, wq[0], s[0]) + 2 * m * D * 4, 2 * m * (D + F_) * D,
+                    "gemv_kernel" if m <= 8 else "mma_kernel")
+        report("dual_matmul_kernel", "K4a out_proj", m, max(ea.max().item(), em.max().item()),
+               ok, tm if m == 1 else None)
+    del wq, s, lib_o, lib_f
+
+    # K5: the v1 adapter (D=4096, DH=1024) of all 28 layers (235 MB) cycled
+    L = 28
+    fz = {"wd": int8(L, D, DH), "sd": scales(L, 1, DH), "bd": scales(L, 1, DH) * 100,
+          "wu": int8(L, DH, D), "su": scales(L, 1, D), "bu": scales(L, 1, D) * 100}
+    lib_d = [deq(fz["wd"][i], fz["sd"][i, 0]) for i in range(L)]
+    lib_u = [deq(fz["wu"][i], fz["su"][i, 0]) for i in range(L)]
+    lib_b = [(fz["bd"][i, 0].to(torch.bfloat16), fz["bu"][i, 0].to(torch.bfloat16))
+             for i in range(L)]
+    for m in (1, 64):
+        x = bf16(m, D)
+        out = quant.fused_adapter_stacked(x, fz, 5)
+        ref = quant.fused_adapter_stacked_plain(x, fz, 5)
+        torch.cuda.synchronize()
+        # h is rounded to bf16 in both: an h on a rounding boundary can land
+        # one bf16 ulp (2^-8 relative) apart and move out by 2^-8 |h| |Wu| su
+        hh = torch.relu(quant.int8_matmul_plain(x, fz["wd"][5], fz["sd"][5, 0]) + fz["bd"][5, 0])
+        up = (hh.abs() @ fz["wu"][5].float().abs()) * fz["su"][5, 0]
+        err = (out - ref).abs()
+        ok = bool((err <= 2.0 ** -8 * up + _sum_tol(hh, fz["wu"][5], fz["su"][5, 0], DH)
+                   + 1e-6).all())
+        it = itertools.cycle(range(L))
+
+        def library():
+            i = next(it)
+            return torch.relu(x @ lib_d[i] + lib_b[i][0]) @ lib_u[i] + lib_b[i][1]
+
+        tm = timing("K5 adapter", m, lambda: quant.fused_adapter_stacked(x, fz, next(it)),
+                    lambda: quant.fused_adapter_stacked_plain(x, fz, next(it)), library,
+                    nbytes(x, fz["wd"][0], fz["wu"][0]) + 4 * (2 * DH + 2 * D) + m * D * 4,
+                    2 * m * 2 * D * DH, "fused_adapter_kernel")
+        report("fused_adapter_kernel", "K5 adapter", m, err.max().item(), ok,
+               tm if m == 1 else None)
+    del fz, lib_d, lib_u, lib_b
+
+    # K2a: the untied head, decode's M=1; 206 MB, larger than L2 by itself
+    wq, s = int8(D, V), scales(V)
+    w_lib = deq(wq, s)
+    x = bf16(1, D)
+    out, ref = quant.int8_matmul(x, wq, s), quant.int8_matmul_plain(x, wq, s)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    tm = timing("K2a head", 1, lambda: quant.int8_matmul(x, wq, s),
+                lambda: quant.int8_matmul_plain(x, wq, s), lambda: torch.matmul(x, w_lib),
+                nbytes(x, wq, s) + V * 4, 2 * D * V, "gemv_kernel")
+    report("int8_matmul_kernel", "K2a head", 1, err.max().item(),
+           bool((err <= _sum_tol(x, wq, s, D)).all()), tm)
+    for wrapper, (name, replaces) in INT8_KERNELS.items():
+        entries[wrapper].update(name=name, route="cuda", replaces=replaces, source=(
+            "magma_tpu_torch/csrc/fused_adapter.cu" if name == "fused_adapter"
+            else "magma_tpu_torch/csrc/int8_matmul.cu"))
+    return entries
+
+
+def _requests():
+    return [
+        ("greedy", dict(temperature=0.0)),
+        ("top_p=0.9 T=0.7", dict(temperature=0.7, top_k=0, top_p=0.9)),
+        ("top_k=5 T=0.7", dict(temperature=0.7, top_k=5)),
+    ]
+
+
+def _image():
+    from PIL import Image
+
+    pixels = np.random.default_rng(1).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    return Image.fromarray(pixels)
+
+
+def _run_request(torch, model, i, name, kw, tag):
+    """One caption request: returns (embeddings, tokens, steps)."""
+    dev = model.device
+    lm = model.lm_config
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    emb = model.preprocess_inputs([_image(), PROMPT])
+    end.record()
+    end.synchronize()
+    vision_ms = start.elapsed_time(end)
+    n_text = model.tokenizer.encode(PROMPT).shape[1]
+    want = (1, model.image_prefix_seq_len + n_text, lm.d_model)
+    check(tuple(emb.shape) == want, f"embeddings {tuple(emb.shape)} != {want}")
+    check(torch.isfinite(emb.float()).all().item(), "non-finite embeddings")
+    timing = {}
+    g = torch.Generator(device=dev).manual_seed(100 + i)
+    tokens = model.generate(emb, max_steps=MAX_STEPS, decode=False, generator=g,
+                            timing=timing, **kw)
+    text = model.tokenizer._decode_ids(
+        [t for t in tokens[0].tolist() if t < model.tokenizer.image_token_id])
+    steps = timing["steps"]
+    per_tok = timing["decode_ms"] / max(steps - 1, 1)
+    print(f"[{tag}] request {i} ({name}): embeddings {tuple(emb.shape)}, {steps} tokens "
+          f"{tokens[0, :steps].tolist()} -> {text!r}")
+    print(f"[{tag}]   vision+prefix {vision_ms:.2f} ms, prefill {timing['prefill_ms']:.2f} ms, "
+          f"decode {per_tok:.2f} ms/token ({timing['decode_ms']:.1f} ms over "
+          f"{steps - 1} forwards and {steps} samplings)")
+    check(((tokens >= 0) & (tokens < lm.vocab_size)).all(), "token out of vocab")
+    return emb, tokens, steps
 
 
 def phase_slice(torch):
-    """Three caption requests at full width.  Returns (model, greedy request
-    embeddings, greedy tokens, K1 launches)."""
-    from PIL import Image
-
+    """Three bf16 caption requests at full width.  Returns (model, greedy
+    request embeddings, greedy tokens, K1 launches)."""
     from magma_tpu_torch.models.magma import Magma
     from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
 
     dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Magma(CONFIG, seed=0, device=dev)
     torch.cuda.synchronize()
     lm = model.lm_config
-    n_lm = sum(t.numel() * t.element_size() for t in _leaves(model.params["lm"]))
+    n_lm = nbytes(*_leaves(model.params["lm"]))
     print(f"[slice] Magma({CONFIG.name}) on {torch.cuda.get_device_name(0)} in "
           f"{time.perf_counter() - t0:.1f} s: {lm.n_layers} layers, d_model {lm.d_model}, "
           f"{lm.n_heads} heads x {lm.head_dim}, d_ff {lm.d_ff}, rotary {lm.rotary_dim}, "
@@ -177,45 +469,15 @@ def phase_slice(torch):
     print(f"[slice] tokenizer {type(model.tokenizer).__name__}: {PROMPT!r} -> "
           f"{model.tokenizer.encode(PROMPT).shape[1]} tokens")
 
-    pixels = np.random.default_rng(1).integers(0, 256, (480, 640, 3), dtype=np.uint8)
-    image = Image.fromarray(pixels)
-    requests = [
-        ("greedy", dict(temperature=0.0)),
-        ("top_p=0.9 T=0.7", dict(temperature=0.7, top_k=0, top_p=0.9)),
-        ("top_k=5 T=0.7", dict(temperature=0.7, top_k=5)),
-    ]
     flash_attention_kernel.launches = 0  # count the main path only
     greedy = None
-    for i, (name, kw) in enumerate(requests):
+    for i, (name, kw) in enumerate(_requests()):
         before = flash_attention_kernel.launches
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        emb = model.preprocess_inputs([image, PROMPT])
-        end.record()
-        end.synchronize()
-        vision_ms = start.elapsed_time(end)
-        n_text = model.tokenizer.encode(PROMPT).shape[1]
-        want = (1, model.image_prefix_seq_len + n_text, lm.d_model)
-        check(tuple(emb.shape) == want, f"embeddings {tuple(emb.shape)} != {want}")
-        check(torch.isfinite(emb.float()).all().item(), "non-finite embeddings")
-        timing = {}
-        g = torch.Generator(device=dev).manual_seed(100 + i)
-        tokens = model.generate(emb, max_steps=MAX_STEPS, decode=False, generator=g,
-                                timing=timing, **kw)
-        text = model.tokenizer._decode_ids(
-            [t for t in tokens[0].tolist() if t < model.tokenizer.image_token_id])
+        emb, tokens, _ = _run_request(torch, model, i, name, kw, "slice")
         launches = flash_attention_kernel.launches - before
-        steps = timing["steps"]
-        per_tok = timing["decode_ms"] / max(steps - 1, 1)
-        print(f"[slice] request {i} ({name}): embeddings {tuple(emb.shape)}, "
-              f"K1 launches {launches}, {steps} tokens {tokens[0, :steps].tolist()} "
-              f"-> {text!r}")
-        print(f"[slice]   vision+prefix {vision_ms:.2f} ms, prefill {timing['prefill_ms']:.2f} ms, "
-              f"decode {per_tok:.2f} ms/token ({timing['decode_ms']:.1f} ms over "
-              f"{steps - 1} forwards and {steps} samplings)")
+        print(f"[slice]   K1 launches {launches}")
         check(launches == lm.n_layers, f"request {i}: {launches} K1 launches, "
               f"expected {lm.n_layers} (one per layer's prefill)")
-        check(((tokens >= 0) & (tokens < lm.vocab_size)).all(), "token out of vocab")
         if greedy is None:
             greedy = (emb, tokens)
     launches = flash_attention_kernel.launches
@@ -234,35 +496,189 @@ def _leaves(tree):
         yield tree
 
 
-def phase_kernel_vs_plain_path(torch, model, emb, greedy_tokens):
-    """Prefill logits and greedy tokens, kernel path vs plain einsum path."""
+def _prefill_last_logits(torch, cfg, lm_params, emb):
+    """fp32 logits at the last true position of a padded prefill."""
     from magma_tpu_torch.models import gptj
 
     pad = (-emb.shape[1]) % 64
     padded = torch.nn.functional.pad(emb, (0, 0, 0, pad))
     s = emb.shape[1]
     kv_len = torch.full((1,), s, dtype=torch.int32, device=emb.device)
-    plain_cfg = dataclasses.replace(model.lm_config, attention_impl="xla")
-    logits = {}
-    for name, cfg in (("kernel", model.lm_config), ("plain", plain_cfg)):
-        cache = gptj.init_kv_cache(cfg, 1, padded.shape[1] + 64, device=emb.device)
-        hidden, _ = gptj.forward(cfg, model.params["lm"], padded, cache=cache,
-                                 cache_index=0, kv_len=kv_len, return_hidden=True)
-        logits[name] = gptj.lm_head(cfg, model.params["lm"], hidden[:, s - 1:s])[0, 0]
-    diff = (logits["kernel"] - logits["plain"])[: model.lm_config.vocab_size].abs().max().item()
+    cache = gptj.init_kv_cache(cfg, 1, padded.shape[1] + 64, device=emb.device)
+    hidden, _ = gptj.forward(cfg, lm_params, padded, cache=cache, cache_index=0,
+                             kv_len=kv_len, return_hidden=True)
+    return gptj.lm_head(cfg, lm_params, hidden[:, s - 1:s])[0, 0]
+
+
+def profile_decode_step(torch, model, emb, tag):
+    """One decode forward after the prompt's prefill (b=1, sampling not
+    included): wall time by the host clock around a synchronised step
+    (median of 5), device busy time and kernel count from torch.profiler,
+    and the idle share 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from magma_tpu_torch.models import gptj
+
+    cfg, lm, dev = model.lm_config, model.params["lm"], emb.device
+    s = emb.shape[1]
+    padded = torch.nn.functional.pad(emb, (0, 0, 0, (-s) % 64))
+    cache = gptj.init_kv_cache(cfg, 1, padded.shape[1] + 64, device=dev)
+    gptj.forward(cfg, lm, padded, cache=cache, cache_index=0,
+                 kv_len=torch.full((1,), s, dtype=torch.int32, device=dev), return_hidden=True)
+    x = gptj.embed_tokens(cfg, lm, torch.full((1, 1), model.eos_token, device=dev))
+    pos = torch.full((1,), s, dtype=torch.int32, device=dev)
+
+    def step():
+        gptj.forward(cfg, lm, x, cache=cache, cache_index=pos)
+        torch.cuda.synchronize()
+
+    step()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+    kernels = _kernel_events(torch, prof)
+    if not kernels:
+        print(f"[{tag}] one decode step: wall {wall:.2f} ms; device time not measured "
+              f"(the profiler saw no kernels)")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[{tag}] one decode step (b=1, {s}-token prompt, no sampling): wall {wall:.2f} ms "
+          f"(host clock, median of 5), device busy {busy:.2f} ms in {len(kernels)} kernels, "
+          f"idle share {1 - busy / wall:.3f}")
+    for name, ms in top:
+        print(f"[{tag}]   {ms:.3f} ms  {name[:90]}")
+
+
+def phase_kernel_vs_plain_path(torch, model, emb, greedy_tokens):
+    """Prefill logits and greedy tokens, kernel path vs plain einsum path."""
+    kernel_cfg = model.lm_config
+    plain_cfg = dataclasses.replace(kernel_cfg, attention_impl="xla")
+    logits = {name: _prefill_last_logits(torch, cfg, model.params["lm"], emb)
+              for name, cfg in (("kernel", kernel_cfg), ("plain", plain_cfg))}
+    diff = (logits["kernel"] - logits["plain"])[: kernel_cfg.vocab_size].abs().max().item()
     std = logits["plain"].std().item()
     print(f"[e2e] last-position prefill logits (fp32), kernel vs plain path: "
           f"max|diff| {diff:.4e} (tol {LOGIT_TOL}; logit std {std:.3f})")
     check(torch.isfinite(logits["kernel"]).all().item(), "non-finite prefill logits")
     check(diff <= LOGIT_TOL, f"prefill logits differ by {diff} > {LOGIT_TOL}")
 
-    model.lm_config = plain_cfg  # the last phase: the model is not used after it
+    model.lm_config = plain_cfg
     plain_tokens = model.generate(emb, max_steps=MAX_STEPS, temperature=0.0, decode=False)
-    same = int((plain_tokens[0] == greedy_tokens[0]).sum())
-    first_diff = next((i for i, (a, b) in enumerate(zip(plain_tokens[0], greedy_tokens[0]))
-                       if a != b), None)
-    print(f"[e2e] greedy tokens equal at {same}/{MAX_STEPS} positions "
-          f"(first difference at {first_diff})")
+    model.lm_config = kernel_cfg
+    _print_agreement("[e2e] greedy tokens, kernel vs plain attention", plain_tokens,
+                     greedy_tokens)
+    profile_decode_step(torch, model, emb, "bf16")
+
+
+def _print_agreement(label, a, b):
+    same = int((a[0] == b[0]).sum())
+    first_diff = next((i for i, (x, y) in enumerate(zip(a[0], b[0])) if x != y), None)
+    print(f"{label}: equal at {same}/{MAX_STEPS} positions (first difference at {first_diff})")
+
+
+def _dequantised_lm(torch, lm, cfg):
+    """The bf16 LM of the unquantized layout made from the int8 packs
+    (W s per layer), its head ``lm_head_q`` a bf16 (D, V) tensor, which
+    ``gptj.lm_head`` multiplies in fp32; embeddings keep ``wte``."""
+    D = cfg.d_model
+    blocks = lm["blocks"]
+
+    def deq(w, s):  # (L, K, N) int8, (L, N) -> bf16, one layer at a time
+        return torch.stack([(w[i].float() * s[i]).to(torch.bfloat16) for i in range(w.shape[0])])
+
+    ip, op = blocks["attn"]["in_proj"], blocks["attn"]["out_proj"]
+    w_in = deq(ip["q"], ip["s"])
+    attn = {"q": w_in[..., :D], "k": w_in[..., D:2 * D], "v": w_in[..., 2 * D:3 * D],
+            "o": deq(op["q"][:, :D], op["s"][:, 0])}
+    if "o_bias" in blocks["attn"]:
+        attn["o_bias"] = blocks["attn"]["o_bias"]
+    out = {"wte": lm["wte"], "ln_f": lm["ln_f"],
+           "lm_head_q": (lm["lm_head_q"]["q"].float() * lm["lm_head_q"]["s"]).to(torch.bfloat16),
+           "blocks": {"ln_1": blocks["ln_1"], "attn": attn, "mlp": {
+               "fc_in": {"kernel": w_in[..., 3 * D:], "bias": blocks["mlp"]["fc_in"]["bias"]},
+               "fc_out": {"kernel": deq(op["q"][:, D:], op["s"][:, 1]),
+                          "bias": blocks["mlp"]["fc_out"]["bias"]}}}}
+    for key in ("adapter_mlp", "adapter_attn"):
+        if key in blocks:
+            fz = blocks[key]["fused"]
+            out["blocks"][key] = {
+                "down": {"kernel": deq(fz["wd"], fz["sd"][:, 0]), "bias": fz["bd"][:, 0]},
+                "up": {"kernel": deq(fz["wu"], fz["su"][:, 0]), "bias": fz["bu"][:, 0]}}
+    return out
+
+
+def phase_int8(torch, model):
+    """The int8 caption path: quantize_for_serving(8), three requests with
+    exact launch counts, and the greedy prefill logits against the bf16
+    path over the dequantised packs.  Returns the launches by wrapper."""
+    from magma_tpu_torch.ops import quant
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+    lm = model.lm_config
+    L = lm.n_layers
+    check(lm.mlp_adapter is not None and lm.attn_adapter is None,
+          "the launch counts below assume the v1 recipe: an mlp adapter only")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.quantize_for_serving(8)
+    torch.cuda.synchronize()
+    n_lm = nbytes(*_leaves(model.params["lm"]))
+    check("fused" in model.params["lm"]["blocks"]["adapter_mlp"], "the adapter was not fused")
+    print(f"[int8] quantize_for_serving(8) in {time.perf_counter() - t0:.1f} s: LM "
+          f"{n_lm / 1e9:.2f} GB (int8 packs, fp32 scales, bf16 wte), vision tower BN-folded")
+    ref_lm = _dequantised_lm(torch, model.params["lm"], lm)
+
+    wrappers = {name: getattr(quant, name) for name in INT8_KERNELS}
+    wrappers["flash_attention_kernel"] = flash_attention_kernel
+    for fn in wrappers.values():
+        fn.launches = 0  # count the main path only
+    greedy = None
+    for i, (name, kw) in enumerate(_requests()):
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        emb, tokens, steps = _run_request(torch, model, i, name, kw, "int8")
+        got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        # per forward (1 prefill + steps-1 decodes): K2b and K4a once per
+        # layer, K2a once; K5 once per layer in decode only (the prefill's
+        # 192 rows take the dequantising matmul); K1 once per layer's prefill
+        want = {"int8_matmul_stacked_kernel": L * steps, "dual_matmul_kernel": L * steps,
+                "int8_matmul_kernel": steps, "fused_adapter_kernel": L * (steps - 1),
+                "flash_attention_kernel": L}
+        print(f"[int8]   launches {got}")
+        check(got == want, f"int8 request {i}: launches {got}, expected {want}")
+        if greedy is None:
+            greedy = (emb, tokens)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"[int8] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(int8 model, its dequantised bf16 copy and the requests)")
+
+    emb, tokens = greedy
+    # the same config: the dequantised tree takes the bf16 branches
+    got = _prefill_last_logits(torch, lm, model.params["lm"], emb)
+    ref = _prefill_last_logits(torch, lm, ref_lm, emb)
+    diff = (got - ref)[: lm.vocab_size].abs().max().item()
+    print(f"[int8] last-position prefill logits (fp32), int8 kernels vs the bf16 path over "
+          f"the dequantised packs: max|diff| {diff:.4e} (tol {INT8_LOGIT_TOL}; logit std "
+          f"{ref.std().item():.3f}), argmax equal: {int(got.argmax()) == int(ref.argmax())}")
+    check(torch.isfinite(got).all().item(), "non-finite int8 prefill logits")
+    check(diff <= INT8_LOGIT_TOL, f"int8 prefill logits differ by {diff} > {INT8_LOGIT_TOL}")
+    params = model.params["lm"]
+    model.params["lm"] = ref_lm
+    ref_tokens = model.generate(emb, max_steps=MAX_STEPS, temperature=0.0, decode=False)
+    model.params["lm"] = params
+    _print_agreement("[int8] greedy tokens, int8 kernels vs dequantised bf16 path",
+                     ref_tokens, tokens)
+    del ref_lm
+    profile_decode_step(torch, model, emb, "int8")
+    return launches
 
 
 def main() -> int:
@@ -274,23 +690,26 @@ def main() -> int:
         return fail("no CUDA device: this script measures the port on an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
 
-    phase_device(torch)
+    t_start = time.perf_counter()
+    smi = phase_device(torch)
     phase_build()
-    o_err, ms, plain_ms = phase_kernel(torch)
-    model, emb, greedy_tokens, launches = phase_slice(torch)
-    check(launches > 0, "the main path launched no K1 kernel")
+    k1 = phase_kernel(torch)
+    int8_entries = phase_int8_kernels(torch)
+    model, emb, greedy_tokens, bf16_launches = phase_slice(torch)
+    check(bf16_launches > 0, "the bf16 path launched no K1 kernel")
     phase_kernel_vs_plain_path(torch, model, emb, greedy_tokens)
+    launches = phase_int8(torch, model)
+    for wrapper, n in launches.items():
+        check(n > 0, f"the int8 path launched no {wrapper}")
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "magma_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "magma_tpu/ops/flash_attention.py:75",
-        "launches": launches,
-        "max_abs_err": o_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    k1["launches"] = bf16_launches + launches["flash_attention_kernel"]
+    kernels = [k1]
+    for wrapper in INT8_KERNELS:
+        kernels.append(dict(int8_entries[wrapper], launches=launches[wrapper]))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"done in {time.perf_counter() - t_start:.1f} s on {smi}")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

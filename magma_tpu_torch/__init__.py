@@ -3,9 +3,11 @@
 The JAX package ``magma_tpu`` stays the reference; this package mirrors its
 module layout and function names, imports torch (never jax), and replaces
 each Pallas kernel on its path with a hand-written Hopper kernel
-(``csrc/``).  This first slice covers the single-image caption path:
+(``csrc/``).  It covers the single-image caption path:
 ``Magma.from_checkpoint`` -> ``preprocess_inputs`` -> ``embed`` ->
-``generate`` at bf16, with prefill attention as a CUDA kernel.
+``generate``, at bf16 with prefill attention as a CUDA kernel, and after
+``Magma.quantize_for_serving(bits=8)`` with the int8 products as CUDA
+kernels too.
 """
 
 from magma_tpu_torch.config import MultimodalConfig, load_config

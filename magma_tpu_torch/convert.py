@@ -177,6 +177,10 @@ def load_torch_checkpoint(path: str, lm_cfg, prefix_cfg, device=None) -> Tuple[D
     return convert_state_dict(sd, lm_cfg, prefix_cfg, device)
 
 
+# subtrees of the int8 serving layout, whose leaves keep their stored dtype
+_SERVING_PACKS = ("in_proj", "out_proj", "lm_head_q", "fused", "bvecs")
+
+
 def _walk(tree, fn, path=()):
     if isinstance(tree, dict):
         return {k: _walk(v, fn, path + (k,)) for k, v in tree.items()}
@@ -191,11 +195,15 @@ def from_jax_params(params_np: Dict, state_np: Optional[Dict], lm_cfg, prefix_cf
     arrays, -> the port's (params, state) on ``device``.
 
     LM leaves take ``lm_cfg.param_dtype`` (adapters its
-    ``adapter_param_dtype``); the image prefix and BN stats stay fp32;
-    conv kernels go HWIO -> OIHW."""
+    ``adapter_param_dtype``), except those of the int8 serving layout
+    (``gptj.quantize_lm_params``), which keep the dtype JAX stores them in:
+    int8 weights, fp32 scales, biases and ``bvecs``.  The image prefix and
+    BN stats stay fp32; conv kernels go HWIO -> OIHW."""
     del prefix_cfg  # same tree for every ported encoder
 
     def lm_leaf(path, a):
+        if any(p in _SERVING_PACKS for p in path):
+            return torch.from_numpy(np.array(a)).to(device)
         is_adapter = any(str(p).startswith("adapter") for p in path)
         return _tensor(a, lm_cfg.adapter_param_dtype if is_adapter else lm_cfg.param_dtype,
                        device)

@@ -7,7 +7,9 @@ Port of ``magma_tpu/models/adapters.py`` (reference magma/adapters.py:6-116):
 * ``scaled_parallel``: ``f(u) + scale * bottleneck(u)`` with a learned scalar
 
 where ``bottleneck(x) = up(relu(down(maybe_ln(x))))``, initialised
-N(0, 1e-3) clamped to +-2 std.  The int8 serving layouts are not ported.
+N(0, 1e-3) clamped to +-2 std.  The fused int8 serving payload runs
+through ``ops/quant.fused_adapter_stacked`` (K5); the opt-in two-matmul
+int8 layout is not ported.
 """
 
 from __future__ import annotations
@@ -103,9 +105,21 @@ def apply_adapter(
 ) -> torch.Tensor:
     """Combine a block branch output f(u) with its adapter.
 
-    branch_in is the branch input (post-LN u), branch_out the branch output."""
+    branch_in is the branch input (post-LN u), branch_out the branch output.
+    A {"fused": payload, "idx": layer} adapter (the int8 serving layout of
+    ``gptj._serving_cast_adapters``) runs as one K5 launch, the
+    scaled_parallel scalar already folded into its up scales."""
     if params is None or spec is None:
         return branch_out
+    if "fused" in params:
+        from magma_tpu_torch.ops.quant import fused_adapter_stacked
+
+        src = branch_out if spec.adapter_type == "normal" else branch_in
+        # params["idx"], not .get: a payload that arrives without its layer
+        # must fail, not run layer 0's adapter in every layer
+        z = fused_adapter_stacked(src, params["fused"], params["idx"],
+                                  out_dtype=compute_dtype)
+        return branch_out + z
     if spec.adapter_type == "normal":
         return branch_out + _bottleneck(params, branch_out, compute_dtype)
     z = _bottleneck(params, branch_in, compute_dtype)

@@ -19,8 +19,8 @@ package's key for key.
 Numerics follow the JAX package, not torchvision: a 3x3 conv pads "SAME",
 which at stride 2 on an even input is (0, 1), not (1, 1); conv inputs and
 kernels are cast to ``compute_dtype`` and the output is taken in fp32; BN
-uses the running statistics.  BN folding (``fold_bn``) and the training
-mode are not ported.
+uses the running statistics.  ``fold_bn`` makes the serving copy whose
+tower runs bf16 end to end.  The training mode is not ported.
 """
 
 from __future__ import annotations
@@ -118,6 +118,43 @@ def init_params(generator: torch.Generator, cfg: ClipResNetConfig,
 
 
 # ---------------------------------------------------------------------------
+# Inference-mode BN folding (serving path)
+# ---------------------------------------------------------------------------
+
+
+def fold_bn(params: Dict, stats: Dict, cfg: ClipResNetConfig) -> Dict:
+    """Fold inference BatchNorm into the convs (``clip_resnet.py:178-226``):
+    BN(conv(x)) == conv(x, W * s) + b with s = scale / sqrt(var + eps) per
+    output channel (dim 0 of OIHW) and b = bias - mean * s, both stored
+    bf16, so the folded tower runs bf16 end to end.  Returns a new tree
+    whose convs are {"kernel", "bias"} and whose bn entries are gone."""
+
+    def fold(conv, bn_p, bn_s):
+        inv = (bn_p["scale"] * torch.rsqrt(bn_s["var"] + cfg.bn_eps)).float()
+        return {"kernel": (conv.float() * inv[:, None, None, None]).to(torch.bfloat16),
+                "bias": (bn_p["bias"] - bn_s["mean"] * inv).to(torch.bfloat16)}
+
+    folded: Dict = {"stem": {
+        f"conv{i}": fold(params["stem"][f"conv{i}"], params["stem"][f"bn{i}"],
+                         stats["stem"][f"bn{i}"])
+        for i in (1, 2, 3)}}
+    for stage in range(1, 5):
+        blocks = []
+        for bp, bs in zip(params[f"layer{stage}"], stats[f"layer{stage}"]):
+            fb = {f"conv{j}": fold(bp[f"conv{j}"], bp[f"bn{j}"], bs[f"bn{j}"])
+                  for j in (1, 2, 3)}
+            if "down_conv" in bp:
+                fb["down_conv"] = fold(bp["down_conv"], bp["down_bn"], bs["down_bn"])
+            blocks.append(fb)
+        folded[f"layer{stage}"] = blocks
+    return folded
+
+
+def is_folded(params: Dict) -> bool:
+    return isinstance(params["stem"]["conv1"], dict)
+
+
+# ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
 
@@ -129,13 +166,50 @@ def _same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _pad_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    if k == 1:
+        return x
+    ph, pw = _same_pads(x.shape[2], k, stride), _same_pads(x.shape[3], k, stride)
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+
+
 def _conv(x: torch.Tensor, kernel: torch.Tensor, stride: int, dtype) -> torch.Tensor:
     """NCHW conv, "SAME" for k > 1 and "VALID" for 1x1; fp32 result."""
-    k = kernel.shape[-1]
-    if k > 1:
-        ph, pw = _same_pads(x.shape[2], k, stride), _same_pads(x.shape[3], k, stride)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    x = _pad_same(x, kernel.shape[-1], stride)
     return F.conv2d(x.to(dtype), kernel.to(dtype), stride=stride).float()
+
+
+def _fconv(x: torch.Tensor, p: Dict, stride: int = 1) -> torch.Tensor:
+    """Folded conv: conv + bias in the kernel's dtype (bf16), no fp32 round
+    trip.  x must already be in that dtype, as ``lax.conv`` requires."""
+    x = _pad_same(x, p["kernel"].shape[-1], stride)
+    return F.conv2d(x, p["kernel"], stride=stride) + p["bias"][None, :, None, None]
+
+
+def _bottleneck_folded(x, bp, stride):
+    out = torch.relu(_fconv(x, bp["conv1"]))
+    out = torch.relu(_fconv(out, bp["conv2"]))
+    if stride > 1:
+        out = _avgpool(out, stride)
+    out = _fconv(out, bp["conv3"])
+    if "down_conv" in bp:
+        sc = _avgpool(x, stride) if stride > 1 else x
+        sc = _fconv(sc, bp["down_conv"])
+    else:
+        sc = x
+    return torch.relu(out + sc)
+
+
+def _apply_folded(params: Dict, images: torch.Tensor, cfg: ClipResNetConfig) -> torch.Tensor:
+    cdt = to_dtype(cfg.compute_dtype)
+    x = images.to(cdt)
+    for i, stride in enumerate((2, 1, 1), start=1):
+        x = torch.relu(_fconv(x, params["stem"][f"conv{i}"], stride))
+    x = _avgpool(x, 2)
+    for stage in range(1, 5):
+        for b, bp in enumerate(params[f"layer{stage}"]):
+            x = _bottleneck_folded(x, bp, (2 if stage > 1 else 1) if b == 0 else 1)
+    return x.flatten(2).transpose(1, 2).to(cdt)
 
 
 def _bn(x: torch.Tensor, p: Dict, s: Dict, eps: float) -> torch.Tensor:
@@ -171,9 +245,12 @@ def _bottleneck(x, bp, bs, stride, cfg):
 def apply(params: Dict, stats: Dict, images: torch.Tensor, cfg: ClipResNetConfig,
           *, train: bool = False) -> Tuple[torch.Tensor, Dict]:
     """(b, 3, H, W) images -> ((b, tokens, out_dim) features in the compute
-    dtype, batch stats unchanged).  Inference mode only."""
+    dtype, batch stats unchanged).  Inference mode only; ``fold_bn``'s
+    folded params run the bf16 serving tower."""
     if train:
         raise NotImplementedError("the port's CLIP ResNet has no training mode yet")
+    if is_folded(params):
+        return _apply_folded(params, images, cfg), stats
     cdt = to_dtype(cfg.compute_dtype)
     x = images.float()
     for i, stride in enumerate((2, 1, 1), start=1):

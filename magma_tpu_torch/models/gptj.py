@@ -1,20 +1,28 @@
 """GPT-J decoder in functional PyTorch over layer-stacked parameters.
 
-Port of the bf16 (unquantized) paths of ``magma_tpu/models/gptj.py``: the
-reference LM (GPT-J 6B: 28 layers, 16 heads, hidden 4096, rotary dim 64,
-vocab 50258 padded to 50304) with the parallel attention + FFN block off
-one layernorm, the out-proj bias and tied input/output embeddings.
+Port of the bf16 and int8-serving paths of ``magma_tpu/models/gptj.py``:
+the reference LM (GPT-J 6B: 28 layers, 16 heads, hidden 4096, rotary dim
+64, vocab 50258 padded to 50304) with the parallel attention + FFN block
+off one layernorm, the out-proj bias and tied input/output embeddings.
 
 Parameters keep the JAX package's pytree: a dict whose block tensors are
 stacked on a leading layer axis, (L, in, out) for projections.  Layer ``i``
 is a view ``w[i]``, so the JAX package's scan and closure-constant
 machinery has no counterpart here: the layer loop is a Python loop.
 
+``quantize_lm_params`` builds the int8 serving layout (fused [q|k|v|fc_in]
+``in_proj``, K-concatenated o/fc_out ``out_proj``, the untied ``lm_head_q``
+and fused int8 adapters); ``_block`` then runs the per-layer path that the
+JAX package takes off the TPU (``gptj.py:1219-1237``): K2b for in_proj, K4a
+for out_proj, K5 for the adapters and K2a for the head, each a CUDA kernel
+on the card (``ops/quant.py``).
+
 Numerics matched: fp32 layernorm statistics, tanh gelu, the tied head with
 fp32 output over ``wte`` whose vocab-padding rows are zero, a bf16 KV cache
 (L, b, max_len, h, hd) written once per forward after all layers.
-Training (remat), ring/sp attention, the int8 cache and the quantized and
-fused decode layouts are not ported.
+Training (remat), ring/sp attention, the int8 cache, the int4 layout, the
+tensor-parallel and QLoRA int8 layouts and the fused decode kernels (K6-K8)
+are not ported.
 """
 
 from __future__ import annotations
@@ -131,6 +139,102 @@ def init_kv_cache(cfg: GPTJConfig, batch: int, max_len: int, device=None) -> Dic
 
 
 # ---------------------------------------------------------------------------
+# int8 serving layout
+# ---------------------------------------------------------------------------
+
+
+def _quantize_stacked(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """(L, K, N) -> {"q" int8 (L, K, N), "s" fp32 (L, N)}, one layer at a
+    time so the fp32 temporaries stay one layer big (the JAX package's
+    jitted ``lax.map``, whose bytes ``compiled=True`` gives)."""
+    from magma_tpu_torch.ops.quant import quantize_int8
+
+    packs = [quantize_int8(w[i], compiled=True) for i in range(w.shape[0])]
+    return {"q": torch.stack([p["q"] for p in packs]),
+            "s": torch.stack([p["s"] for p in packs])}
+
+
+def _serving_cast_adapters(params: Dict, mode: str = "bf16") -> Dict:
+    """Shrink the adapters for serving, as the JAX package's function of
+    this name: ``mode="fused_int8"`` packs each adapter without an LN whose
+    dims are multiples of 128 into the {"fused": ...} payload of K5 (the
+    scaled_parallel scalar folded into the up scales and bias); the others,
+    and every adapter in ``mode="bf16"``, keep down/up in bf16.  A payload
+    already fused is left as it is.  The JAX package's opt-in ``"int8"``
+    mode (two int8 matmuls per adapter) is not ported.  Mutates params."""
+    from magma_tpu_torch.ops.quant import quantize_adapter_fused
+
+    if mode not in ("fused_int8", "bf16"):
+        raise NotImplementedError(
+            f"adapter serving mode {mode!r}: the port has 'fused_int8' and 'bf16'")
+    for key in ("adapter_mlp", "adapter_attn"):
+        ad = params["blocks"].get(key)
+        if ad is None or "fused" in ad:
+            continue
+        if mode == "fused_int8" and "ln" not in ad:
+            fz = quantize_adapter_fused(ad["down"]["kernel"], ad["down"]["bias"],
+                                        ad["up"]["kernel"], ad["up"]["bias"],
+                                        out_scale=ad.get("scale"))
+            if fz is not None:
+                params["blocks"][key] = {"fused": fz}
+                continue
+        for name in ("down", "up", "ln", "scale"):
+            if name in ad:
+                ad[name] = ({k: t.to(torch.bfloat16) for k, t in ad[name].items()}
+                            if isinstance(ad[name], dict) else ad[name].to(torch.bfloat16))
+    return params
+
+
+def _attach_bvecs(params: Dict) -> None:
+    """fp32 vector stacks of the fused decode kernels (K6-K8), carried for
+    layout parity with the JAX package: row l of ln_g/ln_b is the LN that
+    follows layer l (ln_1[l + 1], ln_f after the last)."""
+    blocks = params["blocks"]
+    bvecs = {
+        "b_fc_out": blocks["mlp"]["fc_out"]["bias"].float(),
+        "ln_g": torch.cat([blocks["ln_1"]["scale"][1:].float(),
+                           params["ln_f"]["scale"].float()[None]]),
+        "ln_b": torch.cat([blocks["ln_1"]["bias"][1:].float(),
+                           params["ln_f"]["bias"].float()[None]]),
+    }
+    if "o_bias" in blocks["attn"]:
+        bvecs["o_bias"] = blocks["attn"]["o_bias"].float()
+    blocks["bvecs"] = bvecs
+
+
+def quantize_lm_params(params: Dict) -> Dict:
+    """Weight-only int8 serving layout, byte-identical to the JAX
+    package's ``quantize_lm_params`` (``gptj.py:344-457``): q/k/v/fc_in
+    quantized per layer and concatenated along N into "in_proj"; o and
+    fc_out concatenated along K into "out_proj" with (L, 2, N) scales; the
+    untied int8 head "lm_head_q" from ``wte``; "bvecs"; the adapters in the
+    fused-int8 layout.  Layernorms, biases and ``wte`` (the embedding) keep
+    their dtype.  Mutates (and returns) ``params``, dropping the originals
+    as it goes.
+
+    Only this serving layout (the JAX defaults fuse_in_proj=True,
+    fuse_out_proj=True) is ported: the tensor-parallel layout waits for
+    parallelism and the QLoRA layout for training."""
+    from magma_tpu_torch.ops.quant import quantize_int8
+
+    params.pop("lm_head_q", None)
+    attn, mlp = params["blocks"]["attn"], params["blocks"]["mlp"]
+    pieces = [_quantize_stacked(attn.pop(k)) for k in ("q", "k", "v")]
+    pieces.append(_quantize_stacked(mlp["fc_in"].pop("kernel")))
+    attn["in_proj"] = {"q": torch.cat([p["q"] for p in pieces], dim=-1),
+                       "s": torch.cat([p["s"] for p in pieces], dim=-1)}
+    del pieces
+    o_q = _quantize_stacked(attn.pop("o"))
+    f_q = _quantize_stacked(mlp["fc_out"].pop("kernel"))
+    attn["out_proj"] = {"q": torch.cat([o_q["q"], f_q["q"]], dim=1),
+                        "s": torch.stack([o_q["s"], f_q["s"]], dim=1)}
+    del o_q, f_q
+    params["lm_head_q"] = quantize_int8(params["wte"].float().T, compiled=True)
+    _attach_bvecs(params)
+    return _serving_cast_adapters(params, mode="fused_int8")
+
+
+# ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
@@ -144,18 +248,38 @@ def _layer_norm(x: torch.Tensor, p: Dict, eps: float, out_dtype) -> torch.Tensor
     return y.to(out_dtype)
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
-    """x @ w in cdt, promoted as ``jnp.dot`` promotes (a bf16 decode
-    attention output meets fp32 weights as fp32)."""
+def _mm(x: torch.Tensor, w, cdt) -> torch.Tensor:
+    """Matmul dispatching on the weight leaf, as the JAX package's ``_mm``:
+    a tensor (x @ w in cdt, promoted as ``jnp.dot`` promotes: a bf16 decode
+    attention output meets fp32 weights as fp32), an int8 {"q", "s"} pack
+    (K2a), or the same with "idx" (layer ``idx`` of a stacked pack, K2b)."""
+    if isinstance(w, dict):
+        from magma_tpu_torch.ops.quant import int8_matmul, int8_matmul_stacked
+
+        if "q4" in w:
+            raise NotImplementedError(
+                "int4 payloads (q4) arrive with the int4 slice of the port (K3)")
+        if "idx" in w:
+            return int8_matmul_stacked(x, w["q"], w["s"], w["idx"], out_dtype=cdt)
+        return int8_matmul(x, w["q"], w["s"], out_dtype=cdt)
     dt = torch.promote_types(x.dtype, cdt)
     return x.to(dt) @ w.to(dt)
 
 
 def _layer_views(blocks: Dict, n_layers: int) -> List[Dict]:
-    """Layer-stacked tree -> one dict of (L-axis) views per layer."""
+    """Layer-stacked tree -> one dict of (L-axis) views per layer.
+
+    Quantized packs ({"q", "s"}) and fused adapter payloads stay stacked
+    and carry their layer as "idx", which the stacked kernels read through
+    the layer's view: no copy, and none of the JAX package's closure
+    machinery (``_run_blocks_quantized``)."""
 
     def split(t):
         if isinstance(t, dict):
+            if {"q", "s"} <= t.keys():  # an int8 pack (the bf16 attn dict has no "s")
+                return [{**t, "idx": i} for i in range(n_layers)]
+            if "fused" in t:
+                return [{"fused": t["fused"], "idx": i} for i in range(n_layers)]
             parts = {k: split(v) for k, v in t.items()}
             return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
         return t.unbind(0)
@@ -184,9 +308,16 @@ def _block(
     scale = (1.0 / hd ** 0.5) if cfg.scale_attn else 1.0
 
     u = _layer_norm(x, bp["ln_1"], cfg.ln_eps, cdt)
-    q = _mm(u, bp["attn"]["q"], cdt).reshape(b, s, h, hd)
-    kk = _mm(u, bp["attn"]["k"], cdt).reshape(b, s, h, hd)
-    v = _mm(u, bp["attn"]["v"], cdt).reshape(b, s, h, hd)
+    m_pre = None
+    if "in_proj" in bp["attn"]:
+        # serving layout: [q | k | v | fc_in] off the same u in one launch
+        fused = _mm(u, bp["attn"]["in_proj"], cdt)
+        m_pre = fused[..., 3 * D:]
+        q, kk, v = (t.reshape(b, s, h, hd) for t in fused[..., :3 * D].split(D, -1))
+    else:
+        q = _mm(u, bp["attn"]["q"], cdt).reshape(b, s, h, hd)
+        kk = _mm(u, bp["attn"]["k"], cdt).reshape(b, s, h, hd)
+        v = _mm(u, bp["attn"]["v"], cdt).reshape(b, s, h, hd)
     q = apply_rotary(q, sin, cos, cfg.rotary_dim)
     kk = apply_rotary(kk, sin, cos, cfg.rotary_dim)
 
@@ -201,10 +332,21 @@ def _block(
     if cache_kv is not None:
         new_kv = (kk.to(cdt), v.to(cdt))
 
-    a = _mm(attn.reshape(b, s, D), bp["attn"]["o"], cdt)
-    m = _mm(u, bp["mlp"]["fc_in"]["kernel"], cdt) + bp["mlp"]["fc_in"]["bias"].to(cdt)
-    m = F.gelu(m, approximate="tanh")
-    m = _mm(m, bp["mlp"]["fc_out"]["kernel"], cdt)
+    ctx = attn.reshape(b, s, D)
+    if "out_proj" in bp["attn"]:
+        # serving layout: o_proj and fc_out over one weight stream in one
+        # launch, their outputs apart for the per-branch adapters
+        from magma_tpu_torch.ops.quant import dual_matmul_stacked
+
+        w = bp["attn"]["out_proj"]
+        mh = F.gelu(m_pre + bp["mlp"]["fc_in"]["bias"].to(cdt), approximate="tanh")
+        a, m = dual_matmul_stacked(ctx, mh, w, w["idx"], out_dtype=cdt)
+    else:
+        a = _mm(ctx, bp["attn"]["o"], cdt)
+        if m_pre is None:
+            m_pre = _mm(u, bp["mlp"]["fc_in"]["kernel"], cdt)
+        m = F.gelu(m_pre + bp["mlp"]["fc_in"]["bias"].to(cdt), approximate="tanh")
+        m = _mm(m, bp["mlp"]["fc_out"]["kernel"], cdt)
 
     if "o_bias" in bp["attn"]:
         a = a + bp["attn"]["o_bias"].to(cdt)
@@ -269,9 +411,12 @@ def forward(
 
 
 def lm_head(cfg: GPTJConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
-    """Hidden states -> fp32 logits over the tied (padded) ``wte``: the
-    product accumulates in fp32 and is returned unrounded, as
+    """Hidden states -> fp32 logits: the int8 head ``lm_head_q`` (K2a)
+    when ``quantize_lm_params`` made one, else the tied (padded) ``wte``,
+    the product accumulated in fp32 and returned unrounded, as
     ``preferred_element_type=float32`` gives it in the JAX package."""
+    if "lm_head_q" in params:
+        return _mm(hidden, params["lm_head_q"], torch.float32)
     w = params["wte"].to(hidden.dtype)
     if hidden.dtype == torch.float32:
         return hidden @ w.T

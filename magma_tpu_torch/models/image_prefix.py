@@ -72,6 +72,19 @@ def init_params(generator: torch.Generator, cfg: ImagePrefixConfig,
     return params, {"enc": enc_stats}
 
 
+def fold_for_serving(params: Dict, stats: Dict, cfg: ImagePrefixConfig) -> Dict:
+    """Serving transform (``image_prefix.py:105-121``): fold the tower's
+    inference BN into its convs (``clip_resnet.fold_bn``) and store the
+    projection in bf16.  Returns a new params tree; ``apply`` takes it as
+    it is (the stats pass through).  Idempotent."""
+    module, enc_cfg, _ = cfg.encoder
+    out = dict(params)
+    if not module.is_folded(params["enc"]):
+        out["enc"] = module.fold_bn(params["enc"], stats["enc"], enc_cfg)
+    out["proj"] = {k: v.to(torch.bfloat16) for k, v in params["proj"].items()}
+    return out
+
+
 def apply(params: Dict, stats: Dict, images: torch.Tensor, cfg: ImagePrefixConfig,
           *, train: bool = False) -> Tuple[torch.Tensor, Dict]:
     """(b, 3, H, W) images -> ((b, out_seq_len, out_dim) embeddings in the

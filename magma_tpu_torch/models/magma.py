@@ -5,9 +5,11 @@ magma/magma.py:29-301): ``Magma(config, seed=..., device=...)``,
 ``preprocess_inputs``, ``embed``, ``generate`` and ``from_checkpoint``.
 Parameters live in ``self.params = {"lm": ..., "image_prefix": ...}`` and
 the vision tower's BN statistics in ``self.state``, as in the JAX package.
-Everything runs on ``device``; nothing moves to the CPU when a GPU is
-asked for and missing.  ``trainable_mask``, ``loss_fn`` and the serving
-transforms (``quantize_for_serving``) are not ported.
+Everything runs on ``device``, the GPU unless the caller asks for the CPU;
+nothing moves to the CPU when a GPU is asked for and missing.
+``quantize_for_serving(bits=8)`` gives the int8 serving path.
+``trainable_mask``, ``loss_fn``, ``pack_for_serving`` and int4 serving are
+not ported.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ class Magma:
         self,
         config: Union[str, Path, MultimodalConfig],
         seed: int = 0,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         init_weights: bool = True,
     ):
         if isinstance(config, (str, Path)):
@@ -73,6 +75,9 @@ class Magma:
             raise TypeError(f"config must be a path or MultimodalConfig, got {type(config)}")
         self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Magma was asked for {self.device}, but CUDA is not "
+                               "available; pass device='cpu' to run on the CPU")
 
         self.lm_config = build_lm_config(config)
         self.seq_len = min(config.seq_len or self.lm_config.max_seq_len,
@@ -198,11 +203,37 @@ class Magma:
         ]
 
     # ------------------------------------------------------------------
+    # Serving transforms
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def quantize_for_serving(self, bits: int = 8) -> "Magma":
+        """Quantize the frozen LM weight-only for serving and fold the
+        vision tower's BN (``magma.py:386-408``).  Irreversible on this
+        instance: the full-precision LM weights are freed.  ``bits=8`` is
+        the int8 layout of ``gptj.quantize_lm_params``, whose products run
+        as the K2a/K2b/K4a/K5 kernels on the card."""
+        if bits == 8:
+            self.params["lm"] = gptj.quantize_lm_params(self.params["lm"])
+        elif bits == 4:
+            raise NotImplementedError(
+                "int4 serving (K3, K4b, K6) arrives with the int4 slice of the port")
+        else:
+            raise ValueError(f"bits must be 8 or 4, got {bits}")
+        self._fold_vision()
+        return self
+
+    def _fold_vision(self):
+        """BN folded into the tower's convs, bf16 projection
+        (``image_prefix.fold_for_serving``).  Idempotent."""
+        self.params["image_prefix"] = ip_mod.fold_for_serving(
+            self.params["image_prefix"], self.state["image_prefix"], self.prefix_config)
+
+    # ------------------------------------------------------------------
     # Checkpoint
     # ------------------------------------------------------------------
     @classmethod
     def from_checkpoint(cls, config_path, checkpoint_path,
-                        device: Union[str, torch.device] = "cpu") -> "Magma":
+                        device: Union[str, torch.device] = "cuda") -> "Magma":
         """Load a reference-named torch checkpoint
         (``mp_rank_00_model_states.pt``; ``sd["module"]`` is unwrapped).
         Parity: magma/magma.py:278-301."""

@@ -116,3 +116,183 @@ def test_tiny_lm_prefill_kernel_vs_plain_path(dev):
     tokens, steps = generate_tokens(cfg, params, emb, None, max_steps=6, temperature=0.0)
     assert flash_attention_kernel.launches == before + cfg.n_layers
     assert tokens.shape == (1, 6) and steps >= 1
+
+
+# ---------------------------------------------------------------------------
+# int8 serving kernels: K2a/K2b and K4a (csrc/int8_matmul.cu), K5
+# (csrc/fused_adapter.cu)
+# ---------------------------------------------------------------------------
+
+
+def _sum_tol(x, wq, s, k):
+    """Both versions sum k exact fp32 products in another order: each sum
+    is within k 2^-24 of the sum of |terms| (the classical bound), so the
+    two are within twice that."""
+    mag = (x.float().abs() @ wq.float().abs()) * s.abs()
+    return 2 * k * 2.0 ** -24 * mag + 1e-30
+
+
+def _int8_inputs(dev, m, k, n, layers=2, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (layers, k, n), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand((layers, n), generator=g, device=dev) * 1e-3 + 1e-4
+    return x, wq, s
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 37, 192])
+def test_int8_matmul_stacked_kernel_matches_plain(m, dev):
+    from magma_tpu_torch.ops import quant
+
+    x, wq, s = _int8_inputs(dev, m, 512, 3584)
+    before = quant.int8_matmul_stacked_kernel.launches
+    out = quant.int8_matmul_stacked(x, wq, s, 1)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_stacked_kernel.launches == before + 1
+    ref = quant.int8_matmul_stacked_plain(x, wq, s, 1)
+    assert out.dtype == torch.float32 and out.shape == (m, 3584)
+    assert torch.all((out - ref).abs() <= _sum_tol(x, wq[1], s[1], 512))
+    # deterministic: the same bits from run to run
+    assert torch.equal(out, quant.int8_matmul_stacked(x, wq, s, 1))
+
+
+def test_int8_matmul_head_kernel_matches_plain(dev):
+    from magma_tpu_torch.ops import quant
+
+    x, wq, s = _int8_inputs(dev, 1, 4096, 50304, layers=1)
+    before = quant.int8_matmul_kernel.launches
+    out = quant.int8_matmul(x, wq[0], s[0])
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_kernel.launches == before + 1
+    ref = quant.int8_matmul_plain(x, wq[0], s[0])
+    assert torch.all((out - ref).abs() <= _sum_tol(x, wq[0], s[0], 4096))
+
+
+@pytest.mark.parametrize("m", [1, 5, 192])
+def test_dual_kernel_matches_plain(m, dev):
+    from magma_tpu_torch.ops import quant
+
+    ko, kf, n = 512, 2048, 512
+    ctx, _, _ = _int8_inputs(dev, m, ko, n, seed=1)
+    h, wq, s1 = _int8_inputs(dev, m, kf, n, seed=2)
+    wq = torch.cat([_int8_inputs(dev, 1, ko, n, seed=3)[1], wq], dim=1)
+    s = torch.stack([s1.flip(0), s1], dim=1)
+    before = quant.dual_matmul_kernel.launches
+    a, mo = quant.dual_matmul_stacked(ctx, h, {"q": wq, "s": s}, 1)
+    torch.cuda.synchronize()
+    assert quant.dual_matmul_kernel.launches == before + 1
+    ra, rm = quant.dual_matmul_stacked_plain(ctx, h, {"q": wq, "s": s}, 1)
+    assert torch.all((a - ra).abs() <= _sum_tol(ctx, wq[1, :ko], s[1, 0], ko))
+    assert torch.all((mo - rm).abs() <= _sum_tol(h, wq[1, ko:], s[1, 1], kf))
+    # K split across a cluster at M <= 8, summed in a fixed order: the same bits
+    a2, mo2 = quant.dual_matmul_stacked(ctx, h, {"q": wq, "s": s}, 1)
+    assert torch.equal(a, a2) and torch.equal(mo, mo2)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 64])
+@pytest.mark.parametrize("d, dh", [(512, 128), (4096, 1024)])
+def test_fused_adapter_kernel_matches_plain(m, d, dh, dev):
+    """h is rounded to bf16 in both: an h on a rounding boundary may land
+    one bf16 ulp (2^-8 relative) apart, which moves out by at most
+    2^-8 |h| |Wu| su; the sums differ as in the int8 products."""
+    from magma_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    layers = 3
+    w = {"wd": torch.randn((layers, d, dh), generator=g, device=dev) * 0.05,
+         "bd": torch.randn((layers, dh), generator=g, device=dev) * 0.05,
+         "wu": torch.randn((layers, dh, d), generator=g, device=dev) * 0.05,
+         "bu": torch.randn((layers, d), generator=g, device=dev) * 0.05}
+    fz = quant.quantize_adapter_fused(w["wd"], w["bd"], w["wu"], w["bu"],
+                                      out_scale=torch.tensor([1.0, 2.0, -0.5], device=dev))
+    x = torch.randn((m, d), generator=g, device=dev).to(torch.bfloat16)
+    before = quant.fused_adapter_kernel.launches
+    out = quant.fused_adapter_stacked(x, fz, 2)
+    torch.cuda.synchronize()
+    assert quant.fused_adapter_kernel.launches == before + 1
+    ref = quant.fused_adapter_stacked_plain(x, fz, 2)
+    h = torch.relu(quant.int8_matmul_plain(x, fz["wd"][2], fz["sd"][2, 0]) + fz["bd"][2, 0])
+    up_mag = (h.abs() @ fz["wu"][2].float().abs()) * fz["su"][2, 0].abs()
+    tol = 2.0 ** -8 * up_mag + _sum_tol(h, fz["wu"][2], fz["su"][2, 0], dh) + 1e-6
+    assert torch.all((out - ref).abs() <= tol)
+    assert torch.equal(out, quant.fused_adapter_stacked(x, fz, 2))
+
+
+@pytest.mark.parametrize("bad", ["fp32_x", "k_not_128", "misaligned_x", "cpu_scales",
+                                 "strided_weight", "adapter_rows_65", "zero_rows",
+                                 "dual_zero_rows", "adapter_zero_rows"])
+def test_int8_wrappers_raise_on_what_they_do_not_take(bad, dev):
+    from magma_tpu_torch.ops import quant
+
+    x, wq, s = _int8_inputs(dev, 4, 512, 384)
+    fn, call = quant.int8_matmul_stacked_kernel, None
+    if bad == "fp32_x":
+        call = lambda: quant.int8_matmul_stacked_kernel(x.float(), wq, s, 0)  # noqa: E731
+    elif bad == "k_not_128":
+        x2, wq2, s2 = _int8_inputs(dev, 4, 520, 384)
+        call = lambda: quant.int8_matmul_stacked_kernel(x2, wq2, s2, 0)  # noqa: E731
+    elif bad == "misaligned_x":
+        xb = torch.zeros((4, 520), device=dev, dtype=torch.bfloat16)[:, 1:513]
+        call = lambda: quant.int8_matmul_stacked_kernel(xb, wq, s, 0)  # noqa: E731
+    elif bad == "cpu_scales":
+        call = lambda: quant.int8_matmul_stacked_kernel(x, wq, s.cpu(), 0)  # noqa: E731
+    elif bad == "strided_weight":
+        fn = quant.int8_matmul_kernel
+        call = lambda: quant.int8_matmul_kernel(x, wq[0].t().t()[:, ::2], s[0, ::2])  # noqa: E731
+    elif bad == "zero_rows":
+        call = lambda: quant.int8_matmul_stacked_kernel(x[:0], wq, s, 0)  # noqa: E731
+    elif bad == "dual_zero_rows":
+        fn = quant.dual_matmul_kernel
+        wd = torch.cat([wq, wq], dim=1)
+        sd = torch.stack([s, s], dim=1)
+        call = lambda: quant.dual_matmul_kernel(x[:0], x[:0], wd, sd, 0)  # noqa: E731
+    else:
+        fn = quant.fused_adapter_kernel
+        fz = {"wd": wq[:, :, :128], "wu": wq[:, :128, :],
+              "sd": s[:, None, :128], "bd": s[:, None, :128],
+              "su": s[:, None, :], "bu": s[:, None, :]}
+        xa = torch.zeros((0 if bad == "adapter_zero_rows" else 65, 512), device=dev,
+                         dtype=torch.bfloat16)
+        call = lambda: quant.fused_adapter_kernel(xa, fz, 0)  # noqa: E731
+    before = fn.launches
+    with pytest.raises((TypeError, ValueError)):
+        call()
+    assert fn.launches == before
+
+
+def test_tiny_int8_lm_on_the_gpu_matches_its_cpu_run(dev):
+    """A bf16 GPT-J with int8 packs on the GPU: prefill logits agree with
+    the same model run on the CPU (the plain versions) to bf16 noise, and
+    a greedy decode launches each kernel the expected number of times."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.models.adapters import AdapterSpec
+    from magma_tpu_torch.ops import quant
+    from magma_tpu_torch.ops.sampling import generate_tokens
+
+    cfg = gptj.GPTJConfig.tiny(d_model=512, n_heads=4, d_ff=2048, attention_impl="flash",
+                               param_dtype=torch.bfloat16,
+                               mlp_adapter=AdapterSpec("normal", 4))
+    params = gptj.init_params(torch.Generator().manual_seed(0), cfg)
+    for proj in ("down", "up"):  # trained-scale adapters so they matter
+        ad = params["blocks"]["adapter_mlp"][proj]
+        ad["kernel"] = torch.randn(ad["kernel"].shape, generator=torch.Generator().manual_seed(1)) * 0.05
+    params = gptj.quantize_lm_params(params)
+    on_gpu = _to(params, dev)
+    emb = torch.randn((1, 40, 512), generator=torch.Generator().manual_seed(2)).to(torch.bfloat16)
+    cpu_logits, _ = gptj.forward(cfg, params, emb)
+    gpu_logits, _ = gptj.forward(cfg, on_gpu, emb.to(dev))
+    torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, atol=0.1, rtol=0)
+    kernels = (quant.int8_matmul_kernel, quant.int8_matmul_stacked_kernel,
+               quant.dual_matmul_kernel, quant.fused_adapter_kernel)
+    before = [k.launches for k in kernels]
+    tokens, steps = generate_tokens(cfg, on_gpu, emb.to(dev), None, max_steps=6,
+                                    temperature=0.0)
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    L = cfg.n_layers
+    assert got == [steps, L * steps, L * steps, L * steps]  # 40 prompt rows: K5 in prefill too
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

@@ -19,6 +19,7 @@ def test_imports_with_jax_blocked():
         "import magma_tpu_torch\n"
         "import magma_tpu_torch.models.magma, magma_tpu_torch.convert\n"
         "import magma_tpu_torch.ops.flash_attention, magma_tpu_torch.cuda_build\n"
+        "import magma_tpu_torch.ops.quant, magma_tpu_torch.models.gptj\n"
         "assert not [m for m in sys.modules if m == 'magma_tpu' or m.startswith('magma_tpu.')]\n"
         "print('ok')\n"
     )
@@ -30,10 +31,12 @@ def test_imports_with_jax_blocked():
 def test_no_jax_import_in_the_source():
     pat = re.compile(r"^\s*(import\s+(jax|flax|magma_tpu)\b|from\s+(jax|flax|magma_tpu)[\s.])",
                      re.M)
+    sources = [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
-            for p in PORT.rglob("*.py") for m in pat.finditer(p.read_text())]
+            for p in sources for m in pat.finditer(p.read_text())]
     assert not hits, hits
-    assert (PORT / "csrc" / "flash_attn_fwd.cu").exists()
+    for kernel in ("flash_attn_fwd.cu", "int8_matmul.cu", "fused_adapter.cu"):
+        assert (PORT / "csrc" / kernel).exists()
 
 
 @pytest.mark.parametrize("name", ["MAGMA_v1", "MAGMA_v2"])

@@ -82,7 +82,7 @@ def _image():
 
 @pytest.mark.parametrize("attention_impl", ["xla", "flash"])
 def test_caption_path_matches_jax(jax_model, checkpoint, attention_impl):
-    port = TMagma.from_checkpoint(_port_config(attention_impl), checkpoint)
+    port = TMagma.from_checkpoint(_port_config(attention_impl), checkpoint, device="cpu")
     assert port.lm_config.attention_impl == attention_impl
 
     ref_emb = np.asarray(jax_model.preprocess_inputs([_image(), PROMPT]))
@@ -101,7 +101,7 @@ def test_caption_path_matches_jax(jax_model, checkpoint, attention_impl):
 
 def test_from_jax_params_equals_checkpoint_load(jax_model, checkpoint):
     """Both weight bridges give the same tensors, key for key."""
-    port = TMagma.from_checkpoint(_port_config("xla"), checkpoint)
+    port = TMagma.from_checkpoint(_port_config("xla"), checkpoint, device="cpu")
     params_np = jax.tree_util.tree_map(np.asarray, jax_model.params)
     state_np = jax.tree_util.tree_map(np.asarray, jax_model.state)
     params, state = from_jax_params(params_np, state_np, port.lm_config,
@@ -127,8 +127,18 @@ def test_from_jax_params_equals_checkpoint_load(jax_model, checkpoint):
 
 def test_random_init_runs_the_path():
     """A seeded port model answers a request without any checkpoint."""
-    model = TMagma(_port_config("flash"), seed=3)
+    model = TMagma(_port_config("flash"), seed=3, device="cpu")
     emb = model.preprocess_inputs([_image(), PROMPT])
     out = model.generate(emb, max_steps=4, temperature=0.7, top_k=5,
                          generator=torch.Generator().manual_seed(0))
     assert isinstance(out, list) and len(out) == 1 and isinstance(out[0], str)
+
+
+def test_entry_points_default_to_the_gpu(checkpoint, monkeypatch):
+    """Without a device the facade asks for CUDA: where there is none it
+    raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TMagma(_port_config("flash"), seed=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TMagma.from_checkpoint(_port_config("flash"), checkpoint)
