@@ -28,17 +28,31 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    set to 0 just before and read just after.
 4. The greedy request's prefill logits through K1 against the plain
    attention path, and the greedy tokens of both.
+2c. The int4 (W4A8) kernels against their plain versions on seeded
+   inputs at the slice's shapes: K3 (in_proj) at M = 1, 5, 37, 192, K4b
+   (o_proj + fc_out) at M = 1, 192, K6 (the layer boundary) at M = 1, 8
+   with and without the next in_proj, for the v1 adapter and for an
+   attention adapter (scaled_parallel) beside the mlp one with o_bias; each
+   timed with its plain version and bf16 PyTorch calls over weights
+   dequantised outside the timed call (K6: the same ops as a chain).
 5. The int8 caption path: the same model after
    ``quantize_for_serving(bits=8)`` answers the same three requests; every
    kernel's launches are checked exactly against the steps taken; the
    greedy prefill logits are held against the bf16 path over the int8
    packs dequantised back to bf16 (W s).
+6. The int4 caption path: the int8 model is freed, a fresh ``Magma`` from
+   the same seed takes ``quantize_for_serving(bits=4)`` and answers the
+   same three requests, with exact launch counts (K6 once a layer of each
+   decode step); the greedy prefill logits are held against the bf16 path
+   over the int4 packs dequantised to bf16.
 
 The last two lines are one JSON object of the kernels' numbers and one
 JSON object saying the run is ok and on which device.
 """
 
 import dataclasses
+import functools
+import gc
 import itertools
 import json
 import statistics
@@ -53,9 +67,11 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "MAGMA_v1.yml"
 PROMPT = "Describe the painting:"
 MAX_STEPS = 32
-# H100 SXM data sheet: HBM bytes/s and dense bf16 tensor-core FLOP/s
+# H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s and
+# dense int8 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 # bf16 O: both versions round to bf16 at the end and the kernel also rounds
 # P before the PV product, so two fp32 values near a rounding boundary land
 # one bf16 ulp apart (2^-7 relative at most); an absolute floor covers
@@ -79,6 +95,30 @@ INT8_KERNELS = {  # wrapper name in ops/quant.py -> (JSON name, TPU kernel it re
     "dual_matmul_kernel": ("int8_dual", "magma_tpu/ops/quant.py:529"),
     "fused_adapter_kernel": ("fused_adapter", "magma_tpu/ops/quant.py:813"),
 }
+INT4_KERNELS = {  # wrapper name -> (JSON name, TPU kernel it replaces, source)
+    "int4_matmul_stacked_kernel": ("int4_matmul_stacked", "magma_tpu/ops/quant.py:429",
+                                   "magma_tpu_torch/csrc/int4_matmul.cu"),
+    "int4_dual_kernel": ("int4_dual", "magma_tpu/ops/quant.py:601",
+                         "magma_tpu_torch/csrc/int4_matmul.cu"),
+    "boundary_kernel": ("boundary", "magma_tpu/ops/quant.py:942",
+                        "magma_tpu_torch/csrc/boundary.cu"),
+}
+# K3 and K4b against their plain versions: the int8 dots are exact in both
+# and the fp32 steps are the same operations in the same order (neither
+# side contracts them into FMAs), so the tolerance is 0
+INT4_TOL = 0.0
+# K6 against the composition of the plain K4b, K5 and K3: the dual and
+# in_proj sums are bit-identical, but the adapters' int8 sums and the LN
+# statistics run in another order, so an h, a z or a u on a bf16 rounding
+# boundary may land one bf16 ulp apart and carry into y and fused: each
+# output within 2^-6 of its largest magnitude, and >= 90% of it equal
+K6_REL_TOL, K6_MIN_EQUAL = 2.0 ** -6, 0.9
+# int4 kernel path vs the bf16 path over the int4 packs dequantised to
+# bf16: the W4A8 activation rounding (half a code step, up to 0.4% of each
+# 256-block's max, ~0.7% RMS noise on each product) in 3 products a layer,
+# compounded over 28 layers of the residual stream: ~5% of the logit scale
+# (std ~1.3) a logit, its largest over 50k logits ~4.5 times that (~0.3)
+INT4_LOGIT_TOL = 1.0
 
 
 def fail(msg: str) -> int:
@@ -109,11 +149,11 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, ops_per_s: float = BF16_FLOPS):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    each byte moved once at the HBM rate or each operation at the bf16
-    tensor-core rate, whichever is longer."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    each byte moved once at the HBM rate or each operation at the
+    tensor-core rate of its type (bf16 unless given), whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -129,17 +169,22 @@ def device_ms(torch, fn, match: str, calls: int = 20):
     """Mean device time (ms) a call of the kernels whose name contains
     ``match``, from torch.profiler over ``calls`` calls: the kernel alone,
     without the host time that CUDA events around a short call include.
-    None when the profiler records no such kernel."""
+    None when the profiler records no such kernel in two tries (a trace
+    now and then comes back without device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in _kernel_events(torch, prof) if match in e.name]
-    return sum(times) / calls / 1e3 if times else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in _kernel_events(torch, prof)
+                 if match in e.name]
+        if times:
+            return sum(times) / calls / 1e3
+    return None
 
 
 def _fmt_ms(ms) -> str:
@@ -254,6 +299,23 @@ def _sum_tol(x, wq, s, k):
     return 2 * k * 2.0 ** -24 * (x.float().abs() @ wq.float().abs()) * s.abs()
 
 
+def _timing(torch, label, m, kernel, plain, library, n_bytes, flops, match,
+            ops_per_s=BF16_FLOPS, library_is="bf16 torch.matmul over pre-dequantised W"):
+    """Time a kernel (CUDA events a call, the profiler alone), its plain
+    version and its library yardstick; print them beside the bound and
+    return the JSON numbers."""
+    ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain, iters=10), cuda_ms(library)
+    dev_ms = device_ms(torch, kernel, match)
+    bound_ms, bound_by = bound(n_bytes, flops, ops_per_s)
+    share = "" if dev_ms is None else f", the kernel alone at {bound_ms / dev_ms:.2%} of it"
+    print(f"[{label}] M={m} timing: kernel {ms:.4f} ms a call (CUDA events, wrapper "
+          f"included), kernel alone {_fmt_ms(dev_ms)} (profiler), plain {plain_ms:.4f} ms, "
+          f"library ({library_is}) {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}){share}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "kernel_alone_ms": dev_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def phase_int8_kernels(torch):
     """K2a, K2b, K4a and K5 against their plain versions.  Returns their
     JSON entries by wrapper name (launches unset)."""
@@ -286,17 +348,7 @@ def phase_int8_kernels(torch):
         if timing is not None:
             entry.update(timing)
 
-    def timing(label, m, kernel, plain, library, n_bytes, flops, match):
-        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain, iters=10), cuda_ms(library)
-        dev_ms = device_ms(torch, kernel, match)
-        bound_ms, bound_by = bound(n_bytes, flops)
-        share = "" if dev_ms is None else f", the kernel alone at {bound_ms / dev_ms:.2%} of it"
-        print(f"[{label}] M={m} timing: kernel {ms:.4f} ms a call (CUDA events, wrapper "
-              f"included), kernel alone {_fmt_ms(dev_ms)} (profiler), plain {plain_ms:.4f} ms, "
-              f"library (bf16 torch.matmul over pre-dequantised W) {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}){share}")
-        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+    timing = functools.partial(_timing, torch)
 
     # K2b: the in_proj, 4 layers (470 MB of int8) cycled
     L = 4
@@ -399,6 +451,210 @@ def phase_int8_kernels(torch):
             "magma_tpu_torch/csrc/fused_adapter.cu" if name == "fused_adapter"
             else "magma_tpu_torch/csrc/int8_matmul.cu"))
     return entries
+
+
+def phase_int4_kernels(torch):
+    """K3, K4b and K6 against their plain versions.  Returns their JSON
+    entries by wrapper name (launches unset)."""
+    from magma_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    D, F_, DH = 4096, 16384, 1024
+    N_IN = 3 * D + F_
+    timing = functools.partial(_timing, torch, ops_per_s=INT8_OPS)
+
+    def bf16(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(torch.bfloat16)
+
+    def int4_stack(layers, k, n):  # seeded weights packed on the card, one layer at a time
+        packs = [quant.quantize_int4(torch.randn((k, n), generator=g, device=dev) * 0.02,
+                                     compiled=True) for _ in range(layers)]
+        return torch.stack([p["q4"] for p in packs]), torch.stack([p["s4"] for p in packs])
+
+    def deq(q4, s4):  # the library's weight: bf16, made before timing
+        return quant.dequantize_int4(q4, s4).to(torch.bfloat16)
+
+    entries = {}
+
+    def report(wrapper, label, m, err, ok, timed=None):
+        print(f"[{label}] M={m}: max|kernel-plain| {err:.3e}, within tolerance: {ok}")
+        check(ok, f"{label} M={m}: kernel differs from its plain version by {err}")
+        entry = entries.setdefault(wrapper, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if timed is not None:
+            entry.update(timed)
+
+    # K3: the in_proj, 2 layers of 60.6 MB (one is larger than L2) cycled
+    L = 2
+    q4, s4 = int4_stack(L, D, N_IN)
+    w_lib = [deq(q4[i], s4[i]) for i in range(L)]
+    for m in (1, 5, 37, 192):
+        x = bf16(m, D)
+        out = quant.int4_matmul_stacked(x, q4, s4, 1)
+        ref = quant.int4_matmul_stacked_plain(x, q4, s4, 1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        it = itertools.cycle(range(L))
+        tm = timing("K3 in_proj", m, lambda: quant.int4_matmul_stacked(x, q4, s4, next(it)),
+                    lambda: quant.int4_matmul_stacked_plain(x, q4, s4, next(it)),
+                    lambda: torch.matmul(x, w_lib[next(it)]),
+                    nbytes(x, q4[0], s4[0]) + m * N_IN * 4, 2 * m * D * N_IN,
+                    "w4a8_gemv_kernel" if m <= 8 else "w4a8_mma")
+        # the JSON line carries decode's (M=1) numbers; the log has M=192's
+        report("int4_matmul_stacked_kernel", "K3 in_proj", m, err, err <= INT4_TOL,
+               tm if m == 1 else None)
+    del q4, s4, w_lib
+
+    # K4b: o_proj + fc_out, 2 layers of 42.6 MB cycled
+    qo, so = int4_stack(L, D, D)
+    qf, sf = int4_stack(L, F_, D)
+    w = {"q4": torch.cat([qo, qf], 1), "s4": torch.cat([so, sf], 1)}
+    lib_o = [deq(qo[i], so[i]) for i in range(L)]
+    lib_f = [deq(qf[i], sf[i]) for i in range(L)]
+    del qo, so, qf, sf
+    for m in (1, 192):
+        ctx, h = bf16(m, D), bf16(m, F_, std=0.5)
+        a, mo = quant.dual_matmul_stacked(ctx, h, w, 1)
+        ra, rm = quant.dual_matmul_stacked_plain(ctx, h, w, 1)
+        torch.cuda.synchronize()
+        err = max((a - ra).abs().max().item(), (mo - rm).abs().max().item())
+        it = itertools.cycle(range(L))
+
+        def library():
+            i = next(it)
+            return torch.matmul(ctx, lib_o[i]), torch.matmul(h, lib_f[i])
+
+        tm = timing("K4b out_proj", m, lambda: quant.dual_matmul_stacked(ctx, h, w, next(it)),
+                    lambda: quant.dual_matmul_stacked_plain(ctx, h, w, next(it)), library,
+                    nbytes(ctx, h, w["q4"][0], w["s4"][0]) + 2 * m * D * 4,
+                    2 * m * (D + F_) * D, "w4a8_gemv_kernel" if m <= 8 else "w4a8_mma")
+        # the main path runs K4b in prefill only: the JSON line has M=192
+        report("int4_dual_kernel", "K4b out_proj", m, err, err <= INT4_TOL,
+               tm if m == 192 else None)
+    del lib_o, lib_f
+
+    # K6: K4b's 2-layer dual payload, 3 layers of the in_proj (layer i reads
+    # in_proj layer i + 1), the v1 adapter and an attention adapter; layers
+    # 0 and 1 cycled; the last-layer case (no in_proj) runs layer 1
+    L = 3
+    w_in = dict(zip(("q4", "s4"), int4_stack(L, D, N_IN)))
+
+    def vec(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def adapter():
+        return quant.quantize_adapter_fused(
+            vec(L, D, DH, std=0.05), vec(L, DH), vec(L, DH, D, std=0.05), vec(L, D),
+            out_scale=1 + vec(L, std=0.5))
+
+    b_fc_out, ln_g, ln_b, o_bias = vec(L, D), 1 + vec(L, D, std=0.1), vec(L, D), vec(L, D)
+    variants = {"v1 (mlp adapter)": dict(fz_mlp=adapter(), mlp_src="out"),
+                "attn scaled_parallel + mlp normal, o_bias": dict(
+                    fz_mlp=adapter(), mlp_src="out", fz_attn=adapter(), attn_src="in",
+                    o_bias=o_bias)}
+    for name, kw in variants.items():
+        for m in (1, 8):
+            ctx, mh, x, u_in = bf16(m, D), bf16(m, F_, std=0.5), bf16(m, D, std=0.3), bf16(m, D)
+            for with_in in (True, False):
+                li = 0 if with_in else 1
+                args = (ctx, mh, x, w, b_fc_out, ln_g, ln_b, li)
+                ckw = dict(kw, w_in=w_in if with_in else None, u_in=u_in)
+                got = quant.boundary_fused_stacked(*args, **ckw)
+                ref = quant.boundary_fused_stacked_plain(*args, **ckw)
+                torch.cuda.synchronize()
+                errs, ok = [], True
+                for gt, rf in zip(got, ref):
+                    diff = (gt.float() - rf.float()).abs()
+                    errs.append(diff.max().item())
+                    equal = (diff == 0).float().mean().item()
+                    ok = ok and errs[-1] <= K6_REL_TOL * rf.float().abs().max().item() \
+                        and equal >= K6_MIN_EQUAL
+                    print(f"[K6 boundary]   {name}, M={m}, w_in {with_in}: max|diff| "
+                          f"{errs[-1]:.3e} (tol 2^-6 max|plain| = "
+                          f"{K6_REL_TOL * rf.float().abs().max().item():.3e}), "
+                          f"{equal:.4%} of elements equal")
+                tm = _time_boundary(torch, quant, f"K6 boundary, {name}, w_in {with_in}",
+                                    args, ckw, w)
+                # the JSON line carries the main path's case: M=1, v1, w_in
+                report("boundary_kernel", f"K6 boundary, {name}, w_in {with_in}", m,
+                       max(errs), ok, tm if m == 1 and with_in and "v1" in name else None)
+    for wrapper, (name, replaces, source) in INT4_KERNELS.items():
+        entries[wrapper].update(name=name, route="cuda", replaces=replaces, source=source)
+    return entries
+
+
+def _time_boundary(torch, quant, label, args, kw, w):
+    """K6 at one case, cycling layers 0 and 1; its library yardstick is the
+    same ops as bf16 PyTorch calls over weights dequantised before timing:
+    the two dual matmuls, the biases, each adapter (two matmuls, relu), the
+    residual, F.layer_norm and, with ``w_in``, the next in_proj matmul."""
+    import torch.nn.functional as F
+
+    ctx, mh, x, _, b_fc_out, ln_g, ln_b, _ = args
+    m, D = ctx.shape
+    bf = torch.bfloat16
+    w_in, u_in, o_bias = kw["w_in"], kw["u_in"], kw.get("o_bias")
+    adapters = [(kw[f"fz_{k}"], kw[f"{k}_src"]) if kw.get(f"fz_{k}") is not None else None
+                for k in ("attn", "mlp")]
+    deq = quant.dequantize_int4
+
+    def deq_adapter(fz, i):
+        return dict(wd=(fz["wd"][i].float() * fz["sd"][i]).to(bf), bd=fz["bd"][i, 0].to(bf),
+                    wu=(fz["wu"][i].float() * fz["su"][i]).to(bf), bu=fz["bu"][i, 0].to(bf))
+
+    lib = []
+    for i in (0, 1):
+        lib.append(dict(
+            o=deq(w["q4"][i, :D // 2], w["s4"][i, :D // 256]).to(bf),
+            f=deq(w["q4"][i, D // 2:], w["s4"][i, D // 256:]).to(bf),
+            ad=[None if a is None else deq_adapter(a[0], i) for a in adapters],
+            ob=None if o_bias is None else o_bias[i].to(bf),
+            bfo=b_fc_out[i].to(bf), g=ln_g[i], b=ln_b[i],
+            w_in=None if w_in is None else deq(w_in["q4"][i + 1], w_in["s4"][i + 1]).to(bf)))
+    it = itertools.cycle((0, 1))
+
+    def adapter(src, q):
+        return torch.relu(src @ q["wd"] + q["bd"]) @ q["wu"] + q["bu"]
+
+    def library():
+        p = lib[next(it)]
+        a = ctx @ p["o"]
+        if p["ob"] is not None:
+            a = a + p["ob"]
+        if p["ad"][0] is not None:
+            a = a + adapter(u_in if adapters[0][1] == "in" else a, p["ad"][0])
+        mm = mh @ p["f"] + p["bfo"]
+        if p["ad"][1] is not None:
+            mm = mm + adapter(u_in if adapters[1][1] == "in" else mm, p["ad"][1])
+        y = x + a + mm
+        u = F.layer_norm(y.float(), (D,), p["g"], p["b"]).to(bf)
+        return (y, u) if p["w_in"] is None else (y, u, u @ p["w_in"])
+
+    it_k, it_p = itertools.cycle((0, 1)), itertools.cycle((0, 1))
+    rest = args[:7]
+    # each input read once (a layer's weights, u_in where an adapter reads
+    # it), each output written once
+    reads = [ctx, mh, x, w["q4"][0], w["s4"][0]]
+    ops = 2 * m * (mh.shape[1] + D) * D
+    n_vec = 3 + (o_bias is not None)
+    if any(a is not None and a[1] == "in" for a in adapters):
+        reads.append(u_in)
+    for a in adapters:
+        if a is not None:
+            reads += [a[0]["wd"][0], a[0]["wu"][0]]
+            n_vec += 2 * a[0]["wd"].shape[2] / D + 2
+            ops += 4 * m * D * a[0]["wd"].shape[2]
+    n_out = 2 * m * D * 2
+    if w_in is not None:
+        reads += [w_in["q4"][1], w_in["s4"][1]]
+        ops += 2 * m * D * w_in["q4"].shape[-1]
+        n_out += m * w_in["q4"].shape[-1] * 2
+    return _timing(torch, label, m,
+                   lambda: quant.boundary_fused_stacked(*rest, next(it_k), **kw),
+                   lambda: quant.boundary_fused_stacked_plain(*rest, next(it_p), **kw),
+                   library, nbytes(*reads) + n_vec * D * 4 + n_out, ops, "boundary_kernel",
+                   ops_per_s=INT8_OPS, library_is="the same ops as a chain of bf16 PyTorch calls")
 
 
 def _requests():
@@ -510,40 +766,24 @@ def _prefill_last_logits(torch, cfg, lm_params, emb):
     return gptj.lm_head(cfg, lm_params, hidden[:, s - 1:s])[0, 0]
 
 
-def profile_decode_step(torch, model, emb, tag):
-    """One decode forward after the prompt's prefill (b=1, sampling not
-    included): wall time by the host clock around a synchronised step
+def _profile_forward(torch, fn, tag, what):
+    """Wall time of ``fn`` (a synchronised forward) by the host clock
     (median of 5), device busy time and kernel count from torch.profiler,
     and the idle share 1 - busy / wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    from magma_tpu_torch.models import gptj
-
-    cfg, lm, dev = model.lm_config, model.params["lm"], emb.device
-    s = emb.shape[1]
-    padded = torch.nn.functional.pad(emb, (0, 0, 0, (-s) % 64))
-    cache = gptj.init_kv_cache(cfg, 1, padded.shape[1] + 64, device=dev)
-    gptj.forward(cfg, lm, padded, cache=cache, cache_index=0,
-                 kv_len=torch.full((1,), s, dtype=torch.int32, device=dev), return_hidden=True)
-    x = gptj.embed_tokens(cfg, lm, torch.full((1, 1), model.eos_token, device=dev))
-    pos = torch.full((1,), s, dtype=torch.int32, device=dev)
-
-    def step():
-        gptj.forward(cfg, lm, x, cache=cache, cache_index=pos)
-        torch.cuda.synchronize()
-
-    step()
+    fn()
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
-        step()
+        fn()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
+        fn()
     kernels = _kernel_events(torch, prof)
     if not kernels:
-        print(f"[{tag}] one decode step: wall {wall:.2f} ms; device time not measured "
+        print(f"[{tag}] {what}: wall {wall:.2f} ms; device time not measured "
               f"(the profiler saw no kernels)")
         return
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -551,11 +791,40 @@ def profile_decode_step(torch, model, emb, tag):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[{tag}] one decode step (b=1, {s}-token prompt, no sampling): wall {wall:.2f} ms "
-          f"(host clock, median of 5), device busy {busy:.2f} ms in {len(kernels)} kernels, "
-          f"idle share {1 - busy / wall:.3f}")
+    print(f"[{tag}] {what}: wall {wall:.2f} ms (host clock, median of 5), device busy "
+          f"{busy:.2f} ms in {len(kernels)} kernels, idle share {1 - busy / wall:.3f}")
     for name, ms in top:
         print(f"[{tag}]   {ms:.3f} ms  {name[:90]}")
+
+
+def profile_decode_step(torch, model, emb, tag):
+    """The prompt's prefill forward (the last position's head included) and
+    one decode forward after it (b=1, sampling not included), each profiled
+    by ``_profile_forward``."""
+    from magma_tpu_torch.models import gptj
+
+    cfg, lm, dev = model.lm_config, model.params["lm"], emb.device
+    s = emb.shape[1]
+    padded = torch.nn.functional.pad(emb, (0, 0, 0, (-s) % 64))
+    cache = gptj.init_kv_cache(cfg, 1, padded.shape[1] + 64, device=dev)
+    kv_len = torch.full((1,), s, dtype=torch.int32, device=dev)
+
+    def prefill():
+        hidden, _ = gptj.forward(cfg, lm, padded, cache=cache, cache_index=0, kv_len=kv_len,
+                                 return_hidden=True)
+        gptj.lm_head(cfg, lm, hidden[:, s - 1:s])
+        torch.cuda.synchronize()
+
+    _profile_forward(torch, prefill, tag, f"the prefill forward (b=1, {s} tokens padded to "
+                                          f"{padded.shape[1]})")
+    x = gptj.embed_tokens(cfg, lm, torch.full((1, 1), model.eos_token, device=dev))
+    pos = torch.full((1,), s, dtype=torch.int32, device=dev)
+
+    def step():
+        gptj.forward(cfg, lm, x, cache=cache, cache_index=pos)
+        torch.cuda.synchronize()
+
+    _profile_forward(torch, step, tag, f"one decode step (b=1, {s}-token prompt, no sampling)")
 
 
 def phase_kernel_vs_plain_path(torch, model, emb, greedy_tokens):
@@ -587,25 +856,38 @@ def _print_agreement(label, a, b):
 
 def _dequantised_lm(torch, lm, cfg):
     """The bf16 LM of the unquantized layout made from the int8 packs
-    (W s per layer), its head ``lm_head_q`` a bf16 (D, V) tensor, which
-    ``gptj.lm_head`` multiplies in fp32; embeddings keep ``wte``."""
+    (W s per layer) or the int4 ones (``dequantize_int4``), its head
+    ``lm_head_q`` a bf16 (D, V) tensor, which ``gptj.lm_head`` multiplies in
+    fp32; embeddings keep ``wte``."""
+    from magma_tpu_torch.ops.quant import dequantize_int4
+
     D = cfg.d_model
     blocks = lm["blocks"]
 
     def deq(w, s):  # (L, K, N) int8, (L, N) -> bf16, one layer at a time
         return torch.stack([(w[i].float() * s[i]).to(torch.bfloat16) for i in range(w.shape[0])])
 
+    def deq4(q4, s4):  # (L, K/2, N) packed, (L, K/256, N) -> bf16 (L, K, N)
+        return torch.stack([dequantize_int4(q4[i], s4[i]).to(torch.bfloat16)
+                            for i in range(q4.shape[0])])
+
     ip, op = blocks["attn"]["in_proj"], blocks["attn"]["out_proj"]
-    w_in = deq(ip["q"], ip["s"])
+    if "q4" in ip:
+        w_in = deq4(ip["q4"], ip["s4"])
+        w_o = deq4(op["q4"][:, :D // 2], op["s4"][:, :D // 256])
+        w_f = deq4(op["q4"][:, D // 2:], op["s4"][:, D // 256:])
+    else:
+        w_in = deq(ip["q"], ip["s"])
+        w_o, w_f = deq(op["q"][:, :D], op["s"][:, 0]), deq(op["q"][:, D:], op["s"][:, 1])
     attn = {"q": w_in[..., :D], "k": w_in[..., D:2 * D], "v": w_in[..., 2 * D:3 * D],
-            "o": deq(op["q"][:, :D], op["s"][:, 0])}
+            "o": w_o}
     if "o_bias" in blocks["attn"]:
         attn["o_bias"] = blocks["attn"]["o_bias"]
     out = {"wte": lm["wte"], "ln_f": lm["ln_f"],
            "lm_head_q": (lm["lm_head_q"]["q"].float() * lm["lm_head_q"]["s"]).to(torch.bfloat16),
            "blocks": {"ln_1": blocks["ln_1"], "attn": attn, "mlp": {
                "fc_in": {"kernel": w_in[..., 3 * D:], "bias": blocks["mlp"]["fc_in"]["bias"]},
-               "fc_out": {"kernel": deq(op["q"][:, D:], op["s"][:, 1]),
+               "fc_out": {"kernel": w_f,
                           "bias": blocks["mlp"]["fc_out"]["bias"]}}}}
     for key in ("adapter_mlp", "adapter_attn"):
         if key in blocks:
@@ -616,69 +898,98 @@ def _dequantised_lm(torch, lm, cfg):
     return out
 
 
-def phase_int8(torch, model):
-    """The int8 caption path: quantize_for_serving(8), three requests with
-    exact launch counts, and the greedy prefill logits against the bf16
-    path over the dequantised packs.  Returns the launches by wrapper."""
+def _want_launches(bits, L, steps):
+    """Exact launches of one request of ``steps`` tokens (1 prefill + steps-1
+    decode forwards) on the v1 recipe, by wrapper."""
+    if bits == 8:
+        # K2b and K4a once a layer a forward, K2a once a forward; K5 once a
+        # layer in decode only (the prefill's 192 rows take the dequantising
+        # matmul); K1 once a layer's prefill
+        want = {"int8_matmul_stacked_kernel": L * steps, "dual_matmul_kernel": L * steps,
+                "int8_matmul_kernel": steps, "fused_adapter_kernel": L * (steps - 1)}
+    else:
+        # prefill: K3 and K4b once a layer; a decode step: K3 for layer 0's
+        # in_proj, then K6 once a layer (the next in_proj and the adapter
+        # inside it); K2a (the int8 head) once a forward; no K5
+        want = {"int4_matmul_stacked_kernel": L + steps - 1, "int4_dual_kernel": L,
+                "boundary_kernel": L * (steps - 1), "int8_matmul_kernel": steps}
+    want["flash_attention_kernel"] = L
+    return {k: want.get(k, 0) for k in (*INT8_KERNELS, *INT4_KERNELS, "flash_attention_kernel")}
+
+
+def phase_quantized(torch, model, bits):
+    """The int8 (bits=8) or int4 (bits=4) caption path:
+    quantize_for_serving(bits), three requests with exact launch counts of
+    every kernel, and the greedy prefill logits against the bf16 path over
+    the dequantised packs.  Returns the launches by wrapper."""
     from magma_tpu_torch.ops import quant
     from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
 
+    tag = f"int{bits}"
+    tol = INT8_LOGIT_TOL if bits == 8 else INT4_LOGIT_TOL
     lm = model.lm_config
     L = lm.n_layers
     check(lm.mlp_adapter is not None and lm.attn_adapter is None,
           "the launch counts below assume the v1 recipe: an mlp adapter only")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model.quantize_for_serving(8)
+    model.quantize_for_serving(bits)
     torch.cuda.synchronize()
     n_lm = nbytes(*_leaves(model.params["lm"]))
     check("fused" in model.params["lm"]["blocks"]["adapter_mlp"], "the adapter was not fused")
-    print(f"[int8] quantize_for_serving(8) in {time.perf_counter() - t0:.1f} s: LM "
-          f"{n_lm / 1e9:.2f} GB (int8 packs, fp32 scales, bf16 wte), vision tower BN-folded")
+    print(f"[{tag}] quantize_for_serving({bits}) in {time.perf_counter() - t0:.1f} s: LM "
+          f"{n_lm / 1e9:.2f} GB ({tag} packs, fp32 scales, bf16 wte), vision tower BN-folded")
     ref_lm = _dequantised_lm(torch, model.params["lm"], lm)
 
-    wrappers = {name: getattr(quant, name) for name in INT8_KERNELS}
+    wrappers = {name: getattr(quant, name) for name in (*INT8_KERNELS, *INT4_KERNELS)}
     wrappers["flash_attention_kernel"] = flash_attention_kernel
     for fn in wrappers.values():
         fn.launches = 0  # count the main path only
     greedy = None
     for i, (name, kw) in enumerate(_requests()):
         before = {k: fn.launches for k, fn in wrappers.items()}
-        emb, tokens, steps = _run_request(torch, model, i, name, kw, "int8")
+        emb, tokens, steps = _run_request(torch, model, i, name, kw, tag)
         got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
-        # per forward (1 prefill + steps-1 decodes): K2b and K4a once per
-        # layer, K2a once; K5 once per layer in decode only (the prefill's
-        # 192 rows take the dequantising matmul); K1 once per layer's prefill
-        want = {"int8_matmul_stacked_kernel": L * steps, "dual_matmul_kernel": L * steps,
-                "int8_matmul_kernel": steps, "fused_adapter_kernel": L * (steps - 1),
-                "flash_attention_kernel": L}
-        print(f"[int8]   launches {got}")
-        check(got == want, f"int8 request {i}: launches {got}, expected {want}")
+        want = _want_launches(bits, L, steps)
+        print(f"[{tag}]   launches {got}")
+        check(got == want, f"{tag} request {i}: launches {got}, expected {want}")
         if greedy is None:
             greedy = (emb, tokens)
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    print(f"[int8] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-          f"(int8 model, its dequantised bf16 copy and the requests)")
+    print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({tag} model, its dequantised bf16 copy and the requests)")
 
     emb, tokens = greedy
     # the same config: the dequantised tree takes the bf16 branches
     got = _prefill_last_logits(torch, lm, model.params["lm"], emb)
     ref = _prefill_last_logits(torch, lm, ref_lm, emb)
     diff = (got - ref)[: lm.vocab_size].abs().max().item()
-    print(f"[int8] last-position prefill logits (fp32), int8 kernels vs the bf16 path over "
-          f"the dequantised packs: max|diff| {diff:.4e} (tol {INT8_LOGIT_TOL}; logit std "
+    print(f"[{tag}] last-position prefill logits (fp32), {tag} kernels vs the bf16 path over "
+          f"the dequantised packs: max|diff| {diff:.4e} (tol {tol}; logit std "
           f"{ref.std().item():.3f}), argmax equal: {int(got.argmax()) == int(ref.argmax())}")
-    check(torch.isfinite(got).all().item(), "non-finite int8 prefill logits")
-    check(diff <= INT8_LOGIT_TOL, f"int8 prefill logits differ by {diff} > {INT8_LOGIT_TOL}")
+    check(torch.isfinite(got).all().item(), f"non-finite {tag} prefill logits")
+    check(diff <= tol, f"{tag} prefill logits differ by {diff} > {tol}")
     params = model.params["lm"]
     model.params["lm"] = ref_lm
     ref_tokens = model.generate(emb, max_steps=MAX_STEPS, temperature=0.0, decode=False)
     model.params["lm"] = params
-    _print_agreement("[int8] greedy tokens, int8 kernels vs dequantised bf16 path",
+    _print_agreement(f"[{tag}] greedy tokens, {tag} kernels vs dequantised bf16 path",
                      ref_tokens, tokens)
     del ref_lm
-    profile_decode_step(torch, model, emb, "int8")
+    profile_decode_step(torch, model, emb, tag)
     return launches
+
+
+def phase_int4(torch):
+    """Phase 6: a fresh model from the same seed (int4 starts from full
+    precision), then the int4 caption path."""
+    from magma_tpu_torch.models.magma import Magma
+
+    t0 = time.perf_counter()
+    model = Magma(CONFIG, seed=0, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"[int4] Magma({CONFIG.name}) rebuilt from seed 0 in {time.perf_counter() - t0:.1f} s")
+    return phase_quantized(torch, model, 4)
 
 
 def main() -> int:
@@ -695,17 +1006,28 @@ def main() -> int:
     phase_build()
     k1 = phase_kernel(torch)
     int8_entries = phase_int8_kernels(torch)
+    int4_entries = phase_int4_kernels(torch)
     model, emb, greedy_tokens, bf16_launches = phase_slice(torch)
     check(bf16_launches > 0, "the bf16 path launched no K1 kernel")
     phase_kernel_vs_plain_path(torch, model, emb, greedy_tokens)
-    launches = phase_int8(torch, model)
-    for wrapper, n in launches.items():
-        check(n > 0, f"the int8 path launched no {wrapper}")
+    launches8 = phase_quantized(torch, model, 8)
+    for wrapper in (*INT8_KERNELS, "flash_attention_kernel"):
+        check(launches8[wrapper] > 0, f"the int8 path launched no {wrapper}")
+    del model, emb, greedy_tokens  # free the int8 model before the int4 one
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches4 = phase_int4(torch)
+    for wrapper in (*INT4_KERNELS, "int8_matmul_kernel", "flash_attention_kernel"):
+        check(launches4[wrapper] > 0, f"the int4 path launched no {wrapper}")
 
-    k1["launches"] = bf16_launches + launches["flash_attention_kernel"]
+    k1["launches"] = (bf16_launches + launches8["flash_attention_kernel"]
+                      + launches4["flash_attention_kernel"])
     kernels = [k1]
     for wrapper in INT8_KERNELS:
-        kernels.append(dict(int8_entries[wrapper], launches=launches[wrapper]))
+        kernels.append(dict(int8_entries[wrapper],
+                            launches=launches8[wrapper] + launches4[wrapper]))
+    for wrapper in INT4_KERNELS:
+        kernels.append(dict(int4_entries[wrapper], launches=launches4[wrapper]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"done in {time.perf_counter() - t_start:.1f} s on {smi}")

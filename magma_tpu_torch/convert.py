@@ -177,8 +177,12 @@ def load_torch_checkpoint(path: str, lm_cfg, prefix_cfg, device=None) -> Tuple[D
     return convert_state_dict(sd, lm_cfg, prefix_cfg, device)
 
 
-# subtrees of the int8 serving layout, whose leaves keep their stored dtype
+# subtrees of the int8 and int4 serving layouts, whose leaves keep their
+# stored dtype
 _SERVING_PACKS = ("in_proj", "out_proj", "lm_head_q", "fused", "bvecs")
+# the JAX int4 layout's step-major copies of its scales, for the TPU's DMAs
+# (``quant._pack_boundary_scales``); the port's kernels read "s4"
+_TPU_ONLY_LEAVES = ("dsb", "dsb2")
 
 
 def _walk(tree, fn, path=()):
@@ -197,8 +201,10 @@ def from_jax_params(params_np: Dict, state_np: Optional[Dict], lm_cfg, prefix_cf
     LM leaves take ``lm_cfg.param_dtype`` (adapters its
     ``adapter_param_dtype``), except those of the int8 serving layout
     (``gptj.quantize_lm_params``), which keep the dtype JAX stores them in:
-    int8 weights, fp32 scales, biases and ``bvecs``.  The image prefix and
-    BN stats stay fp32; conv kernels go HWIO -> OIHW."""
+    int8 weights and int4 packs, fp32 scales, biases and ``bvecs``; the
+    int4 layout's "dsb"/"dsb2" are dropped, so the tree has the leaves of
+    the port's own ``quantize_lm_params_int4``.  The image prefix and BN
+    stats stay fp32; conv kernels go HWIO -> OIHW."""
     del prefix_cfg  # same tree for every ported encoder
 
     def lm_leaf(path, a):
@@ -214,8 +220,13 @@ def from_jax_params(params_np: Dict, state_np: Optional[Dict], lm_cfg, prefix_cf
             a = a.transpose(3, 2, 0, 1)
         return _tensor(np.ascontiguousarray(a), device=device)
 
+    def drop_tpu_only(tree):
+        if not isinstance(tree, dict):
+            return tree
+        return {k: drop_tpu_only(v) for k, v in tree.items() if k not in _TPU_ONLY_LEAVES}
+
     params = {
-        "lm": _walk(params_np["lm"], lm_leaf),
+        "lm": _walk(drop_tpu_only(params_np["lm"]), lm_leaf),
         "image_prefix": _walk(params_np["image_prefix"], prefix_leaf),
     }
     state = _walk(state_np or {"image_prefix": {"enc": {}}},

@@ -15,14 +15,18 @@ machinery has no counterpart here: the layer loop is a Python loop.
 and fused int8 adapters); ``_block`` then runs the per-layer path that the
 JAX package takes off the TPU (``gptj.py:1219-1237``): K2b for in_proj, K4a
 for out_proj, K5 for the adapters and K2a for the head, each a CUDA kernel
-on the card (``ops/quant.py``).
+on the card (``ops/quant.py``).  ``quantize_lm_params_int4`` builds the
+int4 layout (the same fusions over nibble-packed W4A8 payloads, the int8
+head kept): prefill runs ``_block`` with K3 and K4b, and a decode step of
+b <= 8 runs ``_run_decode_boundary``, one K6 launch per layer
+(``gptj.py:1046-1115``).
 
 Numerics matched: fp32 layernorm statistics, tanh gelu, the tied head with
 fp32 output over ``wte`` whose vocab-padding rows are zero, a bf16 KV cache
 (L, b, max_len, h, hd) written once per forward after all layers.
-Training (remat), ring/sp attention, the int8 cache, the int4 layout, the
-tensor-parallel and QLoRA int8 layouts and the fused decode kernels (K6-K8)
-are not ported.
+Training (remat), ring/sp attention, the int8 cache, the tensor-parallel
+and QLoRA int8 layouts and the whole-layer decode kernels (K7, K8) are not
+ported.
 """
 
 from __future__ import annotations
@@ -186,9 +190,9 @@ def _serving_cast_adapters(params: Dict, mode: str = "bf16") -> Dict:
 
 
 def _attach_bvecs(params: Dict) -> None:
-    """fp32 vector stacks of the fused decode kernels (K6-K8), carried for
-    layout parity with the JAX package: row l of ln_g/ln_b is the LN that
-    follows layer l (ln_1[l + 1], ln_f after the last)."""
+    """fp32 vector stacks of the fused decode kernels (K6; K7 and K8 in the
+    JAX package): row l of ln_g/ln_b is the LN that follows layer l
+    (ln_1[l + 1], ln_f after the last)."""
     blocks = params["blocks"]
     bvecs = {
         "b_fc_out": blocks["mlp"]["fc_out"]["bias"].float(),
@@ -234,6 +238,49 @@ def quantize_lm_params(params: Dict) -> Dict:
     return _serving_cast_adapters(params, mode="fused_int8")
 
 
+def _quantize_stacked_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """(L, K, N) -> {"q4" (L, K/2, N), "s4" (L, K/group, N)}, one layer at
+    a time, with the bytes of the JAX package's jitted ``lax.map``."""
+    from magma_tpu_torch.ops.quant import quantize_int4
+
+    packs = [quantize_int4(w[i], compiled=True) for i in range(w.shape[0])]
+    return {"q4": torch.stack([p["q4"] for p in packs]),
+            "s4": torch.stack([p["s4"] for p in packs])}
+
+
+def quantize_lm_params_int4(params: Dict) -> Dict:
+    """Weight-only int4 serving layout, byte-identical to the JAX package's
+    ``quantize_lm_params_int4`` (``gptj.py:460-547``): q/k/v/fc_in packed
+    per layer and concatenated along N into "in_proj", o and fc_out along
+    the packed rows into "out_proj" (their group scales likewise), the int8
+    head "lm_head_q", "bvecs" and fused-int8 adapters.  Must start from
+    full-precision weights.  Mutates (and returns) ``params``.
+
+    JAX's step-major copies of the scales ("dsb", "dsb2",
+    ``_pack_boundary_scales``) are not built: they spare the TPU sub-32 KB
+    DMAs, while a CUDA kernel indexes "s4" directly."""
+    from magma_tpu_torch.ops.quant import quantize_int8
+
+    attn, mlp = params["blocks"]["attn"], params["blocks"]["mlp"]
+    if "qkv" in attn or "in_proj" in attn:
+        raise ValueError("params already int8-quantized; int4 must start from "
+                         "full-precision weights")
+    params.pop("lm_head_q", None)
+    pieces = [_quantize_stacked_int4(attn.pop(k)) for k in ("q", "k", "v")]
+    pieces.append(_quantize_stacked_int4(mlp["fc_in"].pop("kernel")))
+    attn["in_proj"] = {"q4": torch.cat([p["q4"] for p in pieces], dim=-1),
+                       "s4": torch.cat([p["s4"] for p in pieces], dim=-1)}
+    del pieces
+    o_q = _quantize_stacked_int4(attn.pop("o"))
+    f_q = _quantize_stacked_int4(mlp["fc_out"].pop("kernel"))
+    attn["out_proj"] = {"q4": torch.cat([o_q["q4"], f_q["q4"]], dim=1),
+                        "s4": torch.cat([o_q["s4"], f_q["s4"]], dim=1)}
+    del o_q, f_q
+    params["lm_head_q"] = quantize_int8(params["wte"].float().T, compiled=True)
+    _attach_bvecs(params)
+    return _serving_cast_adapters(params, mode="fused_int8")
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -252,13 +299,14 @@ def _mm(x: torch.Tensor, w, cdt) -> torch.Tensor:
     """Matmul dispatching on the weight leaf, as the JAX package's ``_mm``:
     a tensor (x @ w in cdt, promoted as ``jnp.dot`` promotes: a bf16 decode
     attention output meets fp32 weights as fp32), an int8 {"q", "s"} pack
-    (K2a), or the same with "idx" (layer ``idx`` of a stacked pack, K2b)."""
+    (K2a), the same with "idx" (layer ``idx`` of a stacked pack, K2b), or a
+    stacked int4 {"q4", "s4", "idx"} pack (K3)."""
     if isinstance(w, dict):
-        from magma_tpu_torch.ops.quant import int8_matmul, int8_matmul_stacked
+        from magma_tpu_torch.ops.quant import (int4_matmul_stacked, int8_matmul,
+                                               int8_matmul_stacked)
 
         if "q4" in w:
-            raise NotImplementedError(
-                "int4 payloads (q4) arrive with the int4 slice of the port (K3)")
+            return int4_matmul_stacked(x, w["q4"], w["s4"], w["idx"], out_dtype=cdt)
         if "idx" in w:
             return int8_matmul_stacked(x, w["q"], w["s"], w["idx"], out_dtype=cdt)
         return int8_matmul(x, w["q"], w["s"], out_dtype=cdt)
@@ -276,7 +324,7 @@ def _layer_views(blocks: Dict, n_layers: int) -> List[Dict]:
 
     def split(t):
         if isinstance(t, dict):
-            if {"q", "s"} <= t.keys():  # an int8 pack (the bf16 attn dict has no "s")
+            if {"q", "s"} <= t.keys() or "q4" in t:  # a quantized pack (bf16 attn has no "s")
                 return [{**t, "idx": i} for i in range(n_layers)]
             if "fused" in t:
                 return [{"fused": t["fused"], "idx": i} for i in range(n_layers)]
@@ -356,6 +404,73 @@ def _block(
     return x + a + m, new_kv
 
 
+def _boundary_ok(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor) -> bool:
+    """Can this step take the boundary decode (``gptj.py:934-956``)?  A
+    decode step (s == 1) of b <= 8 rows over the int4 layout with "bvecs",
+    every configured adapter fused."""
+    if x.shape[1] != 1 or x.shape[0] > 8 or "bvecs" not in blocks:
+        return False
+    for k in ("in_proj", "out_proj"):
+        w = blocks["attn"].get(k)
+        if not (isinstance(w, dict) and "q4" in w):
+            return False
+    return all(spec is None or "fused" in blocks.get(name, {})
+               for name, spec in (("adapter_mlp", cfg.mlp_adapter),
+                                  ("adapter_attn", cfg.attn_adapter)))
+
+
+def _run_decode_boundary(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, sin, cos,
+                         cache: Dict, cache_index):
+    """A decode step over boundary launches (``gptj.py:1046-1115``): layer
+    0's ln_1 and in_proj (K3), then per layer the rotary, the cache
+    attention and the gelu in torch and one ``boundary_fused_stacked`` (K6)
+    for the dual, the adapters, the residual, the next LN and the next
+    in_proj.  Returns (x, new keys, new values), the caller writes the
+    cache."""
+    from magma_tpu_torch.ops.quant import boundary_fused_stacked, int4_matmul_stacked
+
+    L, D = cfg.n_layers, cfg.d_model
+    b = x.shape[0]
+    cdt = cfg.compute_dtype
+    h, hd = cfg.n_heads, cfg.head_dim
+    scale = (1.0 / hd ** 0.5) if cfg.scale_attn else 1.0
+    attn_w, bv = blocks["attn"], blocks["bvecs"]
+    fc_in_b = blocks["mlp"]["fc_in"]["bias"]
+
+    def adapter_of(name, spec):
+        if spec is None:
+            return None, "out"
+        return blocks[name]["fused"], "out" if spec.adapter_type == "normal" else "in"
+
+    fz_mlp, mlp_src = adapter_of("adapter_mlp", cfg.mlp_adapter)
+    fz_attn, attn_src = adapter_of("adapter_attn", cfg.attn_adapter)
+    x2 = x.reshape(b, D)
+    u2 = _layer_norm(x2, {"scale": blocks["ln_1"]["scale"][0],
+                          "bias": blocks["ln_1"]["bias"][0]}, cfg.ln_eps, cdt)
+    fused = int4_matmul_stacked(u2, attn_w["in_proj"]["q4"], attn_w["in_proj"]["s4"], 0,
+                                out_dtype=cdt)
+    k_news, v_news = [], []
+    for l in range(L):
+        q, kk, v = (t.reshape(b, 1, h, hd) for t in fused[:, :3 * D].split(D, -1))
+        q = apply_rotary(q, sin, cos, cfg.rotary_dim)
+        kk = apply_rotary(kk, sin, cos, cfg.rotary_dim)
+        k_news.append(kk.to(cdt))
+        v_news.append(v.to(cdt))
+        ctx2 = decode_attention(q, cache["k"][l], cache["v"][l], cache_index, scale=scale,
+                                self_kv=(kk, v)).reshape(b, D)
+        mh2 = F.gelu(fused[:, 3 * D:] + fc_in_b[l].to(cdt), approximate="tanh")
+        outs = boundary_fused_stacked(
+            ctx2, mh2, x2, attn_w["out_proj"], bv["b_fc_out"], bv["ln_g"], bv["ln_b"], l,
+            w_in=None if l == L - 1 else attn_w["in_proj"], fz_attn=fz_attn,
+            attn_src=attn_src, fz_mlp=fz_mlp, mlp_src=mlp_src, u_in=u2,
+            o_bias=bv.get("o_bias"), ln_eps=cfg.ln_eps)
+        if l == L - 1:
+            x2, u2 = outs  # u2 is ln_f(x2); forward applies ln_f itself
+        else:
+            x2, u2, fused = outs
+    return x2.reshape(b, 1, D).to(cdt), k_news, v_news
+
+
 def _write_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
                  cache_index) -> Dict:
     """Write all layers' new K/V, (L, b, s, h, hd), into the cache at
@@ -394,13 +509,17 @@ def forward(
         positions = (start.reshape(-1, 1) + torch.arange(s, device=dev)).expand(b, s)
     sin, cos = rotary_sincos(positions, cfg.rotary_dim)
 
-    k_news, v_news = [], []
-    for i, bp in enumerate(_layer_views(params["blocks"], cfg.n_layers)):
-        x, new_kv = _block(cfg, bp, x, sin, cos, kv_len,
-                           None if cache is None else (cache, i), cache_index)
-        if new_kv is not None:
-            k_news.append(new_kv[0])
-            v_news.append(new_kv[1])
+    blocks = params["blocks"]
+    if cache is not None and _boundary_ok(cfg, blocks, x):
+        x, k_news, v_news = _run_decode_boundary(cfg, blocks, x, sin, cos, cache, cache_index)
+    else:
+        k_news, v_news = [], []
+        for i, bp in enumerate(_layer_views(blocks, cfg.n_layers)):
+            x, new_kv = _block(cfg, bp, x, sin, cos, kv_len,
+                               None if cache is None else (cache, i), cache_index)
+            if new_kv is not None:
+                k_news.append(new_kv[0])
+                v_news.append(new_kv[1])
     if cache is not None:
         cache = _write_cache(cache, torch.stack(k_news), torch.stack(v_news), cache_index)
 

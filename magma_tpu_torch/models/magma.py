@@ -7,9 +7,9 @@ Parameters live in ``self.params = {"lm": ..., "image_prefix": ...}`` and
 the vision tower's BN statistics in ``self.state``, as in the JAX package.
 Everything runs on ``device``, the GPU unless the caller asks for the CPU;
 nothing moves to the CPU when a GPU is asked for and missing.
-``quantize_for_serving(bits=8)`` gives the int8 serving path.
-``trainable_mask``, ``loss_fn``, ``pack_for_serving`` and int4 serving are
-not ported.
+``quantize_for_serving(bits=8)`` gives the int8 serving path and
+``quantize_for_serving(bits=4)`` the int4 one.  ``trainable_mask``,
+``loss_fn`` and ``pack_for_serving`` are not ported.
 """
 
 from __future__ import annotations
@@ -211,12 +211,13 @@ class Magma:
         vision tower's BN (``magma.py:386-408``).  Irreversible on this
         instance: the full-precision LM weights are freed.  ``bits=8`` is
         the int8 layout of ``gptj.quantize_lm_params``, whose products run
-        as the K2a/K2b/K4a/K5 kernels on the card."""
+        as the K2a/K2b/K4a/K5 kernels on the card; ``bits=4`` the int4
+        layout of ``gptj.quantize_lm_params_int4`` (K3, K4b, K6, and K2a
+        for the int8 head), which must start from full precision."""
         if bits == 8:
             self.params["lm"] = gptj.quantize_lm_params(self.params["lm"])
         elif bits == 4:
-            raise NotImplementedError(
-                "int4 serving (K3, K4b, K6) arrives with the int4 slice of the port")
+            self.params["lm"] = gptj.quantize_lm_params_int4(self.params["lm"])
         else:
             raise ValueError(f"bits must be 8 or 4, got {bits}")
         self._fold_vision()

@@ -296,3 +296,204 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# int4 (W4A8) serving kernels: K3 and K4b (csrc/int4_matmul.cu), K6
+# (csrc/boundary.cu)
+# ---------------------------------------------------------------------------
+
+
+def _int4_stack(dev, k, n, layers=2, seed=0):
+    """A packed int4 stack (layers, k/2, n) with its group scales, from
+    seeded weights quantised on the card."""
+    from magma_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    packs = [quant.quantize_int4(torch.randn((k, n), generator=g, device=dev) * 0.02)
+             for _ in range(layers)]
+    return torch.stack([p["q4"] for p in packs]), torch.stack([p["s4"] for p in packs])
+
+
+def _bf16_rows(dev, m, k, seed, std=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((m, k), generator=g, device=dev) * std).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 5, 37, 192])
+def test_int4_matmul_stacked_kernel_matches_plain(m, dev):
+    """K3 on the in_proj stack (K=4096, N=28672): the int8 dots are exact
+    and the fp32 steps are the plain version's, in its order, so the two
+    are equal bit for bit, and the same from run to run."""
+    from magma_tpu_torch.ops import quant
+
+    q4, s4 = _int4_stack(dev, 4096, 28672)
+    x = _bf16_rows(dev, m, 4096, 1)
+    before = quant.int4_matmul_stacked_kernel.launches
+    out = quant.int4_matmul_stacked(x, q4, s4, 1)
+    torch.cuda.synchronize()
+    assert quant.int4_matmul_stacked_kernel.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (m, 28672)
+    assert torch.equal(out, quant.int4_matmul_stacked_plain(x, q4, s4, 1))
+    assert torch.equal(out, quant.int4_matmul_stacked(x, q4, s4, 1))
+
+
+@pytest.mark.parametrize("m", [1, 8, 192])
+def test_int4_dual_kernel_matches_plain(m, dev):
+    from magma_tpu_torch.ops import quant
+
+    qo, so = _int4_stack(dev, 4096, 4096, seed=2)
+    qf, sf = _int4_stack(dev, 16384, 4096, seed=3)
+    w = {"q4": torch.cat([qo, qf], dim=1), "s4": torch.cat([so, sf], dim=1)}
+    ctx, h = _bf16_rows(dev, m, 4096, 4), _bf16_rows(dev, m, 16384, 5, 0.5)
+    before = quant.int4_dual_kernel.launches
+    a, mo = quant.dual_matmul_stacked(ctx, h, w, 1)
+    torch.cuda.synchronize()
+    assert quant.int4_dual_kernel.launches == before + 1
+    ra, rm = quant.dual_matmul_stacked_plain(ctx, h, w, 1)
+    assert torch.equal(a, ra) and torch.equal(mo, rm)
+
+
+def _boundary_payloads(dev, variant):
+    """Full-width int4 payloads (D 4096, F 16384, NI 28672, 2 layers) and
+    fused adapters (DH 1024) for the boundary: "v1" is an mlp adapter
+    (normal); "scaled" adds an attention adapter fed from u_in, with o_bias."""
+    from magma_tpu_torch.ops import quant
+
+    D, F, L = 4096, 16384, 2
+    qo, so = _int4_stack(dev, D, D, seed=6)
+    qf, sf = _int4_stack(dev, F, D, seed=7)
+    qi, si = _int4_stack(dev, D, 3 * D + F, seed=8)
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def vec(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def adapter():
+        return quant.quantize_adapter_fused(vec(L, D, 1024, std=0.05), vec(L, 1024),
+                                            vec(L, 1024, D, std=0.05), vec(L, D),
+                                            out_scale=torch.tensor([1.5, -0.75], device=dev))
+
+    kw = dict(fz_mlp=adapter(), mlp_src="out")
+    if variant == "scaled":
+        kw.update(fz_attn=adapter(), attn_src="in", o_bias=vec(L, D))
+    return ({"q4": torch.cat([qo, qf], 1), "s4": torch.cat([so, sf], 1)},
+            {"q4": qi, "s4": si}, vec(L, D), 1 + vec(L, D, std=0.1), vec(L, D), kw)
+
+
+@pytest.mark.parametrize("w_in", [True, False], ids=["with_w_in", "last_layer"])
+@pytest.mark.parametrize("variant", ["v1", "scaled"])
+@pytest.mark.parametrize("m", [1, 8])
+def test_boundary_kernel_matches_plain(m, variant, w_in, dev):
+    """K6 against the composition of the plain K4b, K5 and K3.  The dual
+    and in_proj sums are the plain version's bits; the adapters' int8 sums
+    run in another order than PyTorch's matmul and the LN statistics in
+    another order than torch's mean and var, so an h, a z or a u on a bf16
+    rounding boundary may land one bf16 ulp apart and carry into y and
+    fused: each output within 2^-6 of its largest magnitude, and at least
+    90% of its elements equal."""
+    from magma_tpu_torch.ops import quant
+
+    dual, w_inp, bfo, ln_g, ln_b, kw = _boundary_payloads(dev, variant)
+    ctx, mh = _bf16_rows(dev, m, 4096, 10), _bf16_rows(dev, m, 16384, 11, 0.5)
+    x, u_in = _bf16_rows(dev, m, 4096, 12, 0.3), _bf16_rows(dev, m, 4096, 13)
+    li = 0 if w_in else 1
+    args = (ctx, mh, x, dual, bfo, ln_g, ln_b, li)
+    kw = dict(kw, w_in=w_inp if w_in else None, u_in=u_in)
+    before = quant.boundary_kernel.launches
+    got = quant.boundary_fused_stacked(*args, **kw)
+    torch.cuda.synchronize()
+    assert quant.boundary_kernel.launches == before + 1
+    ref = quant.boundary_fused_stacked_plain(*args, **kw)
+    assert len(got) == len(ref) == (3 if w_in else 2)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        diff = (g.float() - r.float()).abs()
+        assert diff.max() <= 2.0 ** -6 * r.float().abs().max()
+        assert (diff == 0).float().mean() >= 0.9
+    again = quant.boundary_fused_stacked(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("bad", ["int4_zero_rows", "int4_k_not_512", "int4_fp32_x",
+                                 "dual4_zero_rows", "boundary_9_rows", "boundary_last_layer",
+                                 "boundary_cpu_vec", "boundary_in_without_u_in"])
+def test_int4_wrappers_raise_on_what_they_do_not_take(bad, dev):
+    from magma_tpu_torch.ops import quant
+
+    q4, s4 = _int4_stack(dev, 1024, 512)
+    x = _bf16_rows(dev, 4, 1024, 0)
+    fn = quant.int4_matmul_stacked_kernel
+    if bad == "int4_zero_rows":
+        call = lambda: quant.int4_matmul_stacked_kernel(x[:0], q4, s4, 0)  # noqa: E731
+    elif bad == "int4_k_not_512":
+        q2, s2 = _int4_stack(dev, 768, 512)
+        call = lambda: quant.int4_matmul_stacked_kernel(x[:, :768].contiguous(), q2, s2, 0)  # noqa: E731
+    elif bad == "int4_fp32_x":
+        call = lambda: quant.int4_matmul_stacked_kernel(x.float(), q4, s4, 0)  # noqa: E731
+    elif bad == "dual4_zero_rows":
+        fn = quant.int4_dual_kernel
+        call = lambda: quant.int4_dual_kernel(x[:0], x[:0], torch.cat([q4, q4], 1),  # noqa: E731
+                                              torch.cat([s4, s4], 1), 0)
+    else:
+        fn = quant.boundary_kernel
+        D, F = 512, 1024
+        dual = {"q4": torch.cat([_int4_stack(dev, D, D)[0], _int4_stack(dev, F, D)[0]], 1),
+                "s4": torch.cat([_int4_stack(dev, D, D)[1], _int4_stack(dev, F, D)[1]], 1)}
+        w_in = dict(zip(("q4", "s4"), _int4_stack(dev, D, 1024)))
+        vec = torch.zeros((2, D), device=dev)
+        m = 9 if bad == "boundary_9_rows" else 1
+        rows = _bf16_rows(dev, m, D, 1)
+        mh = _bf16_rows(dev, m, F, 2)
+        kw = dict(w_in=w_in)
+        li = 0
+        if bad == "boundary_last_layer":
+            li = 1
+        elif bad == "boundary_cpu_vec":
+            vec = vec.cpu()
+        elif bad == "boundary_in_without_u_in":
+            fz = quant.quantize_adapter_fused(torch.zeros((2, D, 128), device=dev),
+                                              torch.zeros((2, 128), device=dev),
+                                              torch.zeros((2, 128, D), device=dev),
+                                              torch.zeros((2, D), device=dev))
+            kw.update(fz_attn=fz, attn_src="in")
+        call = lambda: quant.boundary_kernel(rows, mh, rows, dual, vec, vec, vec, li, **kw)  # noqa: E731
+    before = fn.launches
+    with pytest.raises((TypeError, ValueError)):
+        call()
+    assert fn.launches == before
+
+
+def test_tiny_int4_lm_on_the_gpu_matches_its_cpu_run(dev):
+    """A bf16 GPT-J at d_model 512 (every int4 product on its W4A8 kernel)
+    on the GPU against the same model on the CPU (the plain versions):
+    prefill logits agree to bf16 noise, and a greedy decode launches each
+    kernel the expected number of times: per prefill K3, K4b and K5 (40
+    rows) once a layer; per decode step K3 once (layer 0) and K6 once a
+    layer; K2a once a forward."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.models.adapters import AdapterSpec
+    from magma_tpu_torch.ops import quant
+    from magma_tpu_torch.ops.sampling import generate_tokens
+
+    cfg = gptj.GPTJConfig.tiny(d_model=512, n_heads=4, d_ff=2048, attention_impl="flash",
+                               param_dtype=torch.bfloat16,
+                               mlp_adapter=AdapterSpec("normal", 4))
+    params = gptj.init_params(torch.Generator().manual_seed(0), cfg)
+    for proj in ("down", "up"):  # trained-scale adapters so they matter
+        ad = params["blocks"]["adapter_mlp"][proj]
+        ad["kernel"] = torch.randn(ad["kernel"].shape, generator=torch.Generator().manual_seed(1)) * 0.05
+    params = gptj.quantize_lm_params_int4(params)
+    on_gpu = _to(params, dev)
+    emb = torch.randn((1, 40, 512), generator=torch.Generator().manual_seed(2)).to(torch.bfloat16)
+    cpu_logits, _ = gptj.forward(cfg, params, emb)
+    gpu_logits, _ = gptj.forward(cfg, on_gpu, emb.to(dev))
+    torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, atol=0.1, rtol=0)
+    kernels = (quant.int8_matmul_kernel, quant.int4_matmul_stacked_kernel,
+               quant.int4_dual_kernel, quant.boundary_kernel, quant.fused_adapter_kernel)
+    before = [k.launches for k in kernels]
+    tokens, steps = generate_tokens(cfg, on_gpu, emb.to(dev), None, max_steps=6,
+                                    temperature=0.0)
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    L = cfg.n_layers
+    assert got == [steps, L + steps - 1, L, L * (steps - 1), L]

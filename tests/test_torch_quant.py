@@ -185,12 +185,25 @@ def test_fused_adapter_without_its_layer_raises(pkg):
 
 
 def test_int4_dual_payload_raises():
-    with pytest.raises(NotImplementedError, match="int4"):
-        tq.dual_matmul_stacked(torch.zeros(1, KO), torch.zeros(1, KF),
-                               {"q4": torch.zeros(1, 1, N, dtype=torch.int8)}, 0)
+    """An int4 dual payload (q4) no longer raises: off the W4A8 geometry
+    (Ko = 256 packs with group 128) both packages take the dequantising
+    fp32 products, so a and m agree with JAX's to fp32 noise.  The W4A8
+    geometry is held in tests/test_torch_int4.py."""
+    qo = jq.quantize_int4(jnp.asarray(_normal((L, KO, N), 3, 0.05)))
+    qf = jq.quantize_int4(jnp.asarray(_normal((L, KF, N), 4, 0.05)))
+    w = {k: np.concatenate([np.asarray(qo[k]), np.asarray(qf[k])], axis=1) for k in ("q4", "s4")}
+    ctx, h = _normal((2, KO), 5), _normal((2, KF), 6)
+    for i in range(L):
+        ref = jq.dual_matmul_stacked(jnp.asarray(ctx), jnp.asarray(h),
+                                     {k: jnp.asarray(v) for k, v in w.items()}, i)
+        got = tq.dual_matmul_stacked(_t(ctx), _t(h), {k: _t(v) for k, v in w.items()}, i)
+        for g, r in zip(got, ref):
+            assert g.dtype == torch.float32 and tuple(g.shape) == (2, N)
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("kernel", ["int8_matmul", "int8_matmul_stacked", "dual", "fused_adapter"])
+@pytest.mark.parametrize("kernel", ["int8_matmul", "int8_matmul_stacked", "dual", "fused_adapter",
+                                    "int4_matmul_stacked", "int4_dual", "boundary"])
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """The wrappers launch or raise: a CPU tensor never reaches a plain
     version through them, and no launch is counted."""
@@ -205,6 +218,18 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
         "fused_adapter": (tq.fused_adapter_kernel, lambda: tq.fused_adapter_kernel(
             x, tq.quantize_adapter_fused(*map(_t, _adapter_weights())), 0)),
     }
+    q4 = tq.quantize_int4(_t(_normal((L, 512, N), 8, 0.05)))
+    x4 = torch.zeros((1, 512), dtype=torch.bfloat16)
+    dual4 = {k: torch.cat([v, v], dim=1) for k, v in q4.items()}
+    vec = torch.zeros((L, 512))
+    calls.update({
+        "int4_matmul_stacked": (tq.int4_matmul_stacked_kernel,
+                                lambda: tq.int4_matmul_stacked_kernel(x4, q4["q4"], q4["s4"], 1)),
+        "int4_dual": (tq.int4_dual_kernel,
+                      lambda: tq.int4_dual_kernel(x4, x4, dual4["q4"], dual4["s4"], 0)),
+        "boundary": (tq.boundary_kernel, lambda: tq.boundary_kernel(
+            x4, x4, x4, dual4, vec, vec, vec, 0)),
+    })
     fn, call = calls[kernel]
     before = fn.launches
     with pytest.raises(ValueError, match="CUDA"):

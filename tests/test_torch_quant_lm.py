@@ -275,9 +275,21 @@ def test_facade_int8_serving_matches_jax(served_pair):
 
 
 def test_facade_quantize_for_serving_bits():
+    """bits=3 raises and changes nothing; bits=4 gives the int4 layout
+    (q4 packs, the int8 head, bvecs, a fused adapter) and folds the tower."""
     model = TMagma(TConfig(**_mm_config_kwargs()), seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="int4"):
-        model.quantize_for_serving(4)
     with pytest.raises(ValueError, match="bits"):
         model.quantize_for_serving(3)
     assert "q" in model.params["lm"]["blocks"]["attn"]  # nothing was changed
+    model.quantize_for_serving(4)
+    lm = model.params["lm"]
+    for k in ("in_proj", "out_proj"):
+        assert set(lm["blocks"]["attn"][k]) == {"q4", "s4"}
+        assert lm["blocks"]["attn"][k]["q4"].dtype == torch.int8
+    assert lm["blocks"]["attn"]["in_proj"]["q4"].shape == (2, 256, 3 * 512 + 2048)
+    assert lm["lm_head_q"]["q"].dtype == torch.int8 and "bvecs" in lm["blocks"]
+    assert "fused" in lm["blocks"]["adapter_mlp"]
+    enc = model.params["image_prefix"]["enc"]
+    assert enc["stem"]["conv1"]["kernel"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="full-precision"):
+        model.quantize_for_serving(4)  # int4 must start from full precision
