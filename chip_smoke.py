@@ -35,16 +35,43 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    attention adapter (scaled_parallel) beside the mlp one with o_bias; each
    timed with its plain version and bf16 PyTorch calls over weights
    dequantised outside the timed call (K6: the same ops as a chain).
+2d. K7 and K8 (whole decode layers, ``ops/decode_layer.py``) against their
+   plain versions at full width, on seeded int4 and int8 28-layer stacks
+   built on the card, over a bf16 and an int8 cache of 256 positions filled
+   to pos = 180, for the v1 adapter and for an attention adapter
+   (scaled_parallel) beside the mlp one with o_bias: K7 at layer 13 with
+   the next in_proj and at layer 27 without, K8 over all 28 layers, and K8
+   at pos = 0 (the token alone).  Each case timed with its plain version,
+   its bound and the same ops as a chain of bf16 PyTorch calls over
+   weights dequantised before timing; then 28 K7 launches against one K8
+   launch for the same step, and the time of one grid barrier of K8's grid
+   alone.
 5. The int8 caption path: the same model after
    ``quantize_for_serving(bits=8)`` answers the same three requests; every
-   kernel's launches are checked exactly against the steps taken; the
+   kernel's launches are checked exactly against the steps taken (each
+   b=1 decode step: layer 0's in_proj (K2b), one K8, the head (K2a)); the
    greedy prefill logits are held against the bf16 path over the int8
    packs dequantised back to bf16 (W s).
+5b. Decode-path agreement (int8): on the greedy request's prefilled cache,
+   bf16 and int8, one decode step through K8, through the path a b <= 8
+   step takes (the per-layer chain: K2b, K4a, K5), through 28 K7 launches
+   and through K8's plain version: K8's logits within 3e-2 relative of the
+   b <= 8 path's and argmax equal, its new cache entries within 3e-2 of
+   their largest value (JAX's bounds for this comparison; the int8 codes
+   as the values they stand for, code x scale); the plain version's
+   distance printed beside K8's, and the distance of each layer's keys;
+   the K7 chain equal to K8 bit for bit.
 6. The int4 caption path: the int8 model is freed, a fresh ``Magma`` from
    the same seed takes ``quantize_for_serving(bits=4)`` and answers the
-   same three requests, with exact launch counts (K6 once a layer of each
-   decode step); the greedy prefill logits are held against the bf16 path
-   over the int4 packs dequantised to bf16.
+   same three requests, with exact launch counts (one K8 a decode step);
+   the greedy prefill logits are held against the bf16 path over the int4
+   packs dequantised to bf16.
+6b. Decode-path agreement (int4), as 5b with the boundary path (layer 0's
+   K3, then K6 once a layer).
+7. The int8-cache caption path: the int4 model with
+   ``kv_cache_dtype="int8"`` answers the same three requests with exact
+   launches; its greedy prefill logits equal phase 6's bit for bit (the
+   prefill reads fresh keys, never the cache).
 
 The last two lines are one JSON object of the kernels' numbers and one
 JSON object saying the run is ok and on which device.
@@ -103,6 +130,12 @@ INT4_KERNELS = {  # wrapper name -> (JSON name, TPU kernel it replaces, source)
     "boundary_kernel": ("boundary", "magma_tpu/ops/quant.py:942",
                         "magma_tpu_torch/csrc/boundary.cu"),
 }
+DECODE_KERNELS = {  # wrapper name in ops/decode_layer.py -> (JSON name, TPU kernel, source)
+    "decode_layer_kernel": ("decode_layer", "magma_tpu/ops/decode_layer.py:89",
+                            "magma_tpu_torch/csrc/decode_layer.cu"),
+    "decode_all_layers_kernel": ("decode_all_layers", "magma_tpu/ops/decode_layer.py:830",
+                                 "magma_tpu_torch/csrc/decode_layer.cu"),
+}
 # K3 and K4b against their plain versions: the int8 dots are exact in both
 # and the fp32 steps are the same operations in the same order (neither
 # side contracts them into FMAs), so the tolerance is 0
@@ -119,6 +152,22 @@ K6_REL_TOL, K6_MIN_EQUAL = 2.0 ** -6, 0.9
 # compounded over 28 layers of the residual stream: ~5% of the logit scale
 # (std ~1.3) a logit, its largest over 50k logits ~4.5 times that (~0.3)
 INT4_LOGIT_TOL = 1.0
+# K7 against its plain version: its boundary phases are K6's, so K6's
+# tolerance, which also covers its own differences from the plain version:
+# the attention's chunked online softmax (exp(s - m_chunk) exp(m_chunk - m)
+# against exp(s - m)), the gelu's tanh against PyTorch's, each an fp32
+# rounding that can move a ctx or an mh across a bf16 rounding boundary.
+# k_new within one bf16 ulp of each value (the fp32 rotary, in the plain
+# version's order of operations); v_new is a copy, so exactly.
+K7_REL_TOL, K7_MIN_EQUAL = K6_REL_TOL, K6_MIN_EQUAL
+# K8's y after 28 chained layers: each layer adds K7's differences, and a
+# flip in one layer's y, u or fused moves every later layer a little; 28
+# independent layer errors of at most 2^-6 max|y| add to about
+# sqrt(28) 2^-6 = 0.083 max|y|, under 2^-3.  Its k_new and v_new rows are
+# held to the same bound (layer 0's, before any chained difference, as K7's)
+K8_REL_TOL = 2.0 ** -3
+# decode-path agreement: JAX's bounds (tests/test_decode_layer.py:92-107)
+PATH_REL_TOL = 3e-2
 
 
 def fail(msg: str) -> int:
@@ -300,11 +349,13 @@ def _sum_tol(x, wq, s, k):
 
 
 def _timing(torch, label, m, kernel, plain, library, n_bytes, flops, match,
-            ops_per_s=BF16_FLOPS, library_is="bf16 torch.matmul over pre-dequantised W"):
+            ops_per_s=BF16_FLOPS, library_is="bf16 torch.matmul over pre-dequantised W",
+            plain_iters=10):
     """Time a kernel (CUDA events a call, the profiler alone), its plain
     version and its library yardstick; print them beside the bound and
     return the JSON numbers."""
-    ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain, iters=10), cuda_ms(library)
+    ms, lib_ms = cuda_ms(kernel), cuda_ms(library)
+    plain_ms = cuda_ms(plain, iters=plain_iters, warmup=min(5, plain_iters))
     dev_ms = device_ms(torch, kernel, match)
     bound_ms, bound_by = bound(n_bytes, flops, ops_per_s)
     share = "" if dev_ms is None else f", the kernel alone at {bound_ms / dev_ms:.2%} of it"
@@ -657,6 +708,330 @@ def _time_boundary(torch, quant, label, args, kw, w):
                    ops_per_s=INT8_OPS, library_is="the same ops as a chain of bf16 PyTorch calls")
 
 
+def _declayer_stacks(torch, g, fmt, L, D, F_, DH):
+    """Seeded 28-layer serving stacks of ``fmt`` built on the card, one layer
+    at a time: the dual (o_proj + fc_out), the in_proj, two fused adapters
+    and the vectors."""
+    from magma_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+
+    def w(k, n):
+        return torch.randn((k, n), generator=g, device=dev) * 0.02
+
+    def stack(k, n):
+        q = (lambda a: quant.quantize_int4(a, compiled=True)) if fmt == "int4" else \
+            (lambda a: quant.quantize_int8(a, compiled=True))
+        packs = [q(w(k, n)) for _ in range(L)]
+        return {key: torch.stack([p[key] for p in packs]) for key in packs[0]}
+
+    o, f = stack(D, D), stack(F_, D)
+    if fmt == "int4":
+        dual = {"q4": torch.cat([o["q4"], f["q4"]], 1), "s4": torch.cat([o["s4"], f["s4"]], 1)}
+    else:
+        dual = {"q": torch.cat([o["q"], f["q"]], 1), "s": torch.stack([o["s"], f["s"]], 1)}
+    del o, f
+    w_in = stack(D, 3 * D + F_)
+
+    def vec(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def adapter():
+        return quant.quantize_adapter_fused(vec(L, D, DH, std=0.05), vec(L, DH),
+                                            vec(L, DH, D, std=0.05), vec(L, D),
+                                            out_scale=1 + vec(L, std=0.5))
+
+    vecs = dict(b_fc_in=vec(L, F_, std=0.1), b_fc_out=vec(L, D), ln_g=1 + vec(L, D, std=0.1),
+                ln_b=vec(L, D), o_bias=vec(L, D))
+    return dual, w_in, adapter(), adapter(), vecs
+
+
+def _dequant_chain_weights(torch, quant, dual, w_in, fz_list, D, L):
+    """bf16 copies of every layer's weights for the chain yardstick."""
+    bf = torch.bfloat16
+
+    def deq(q, s):
+        if "q4" in q:
+            return quant.dequantize_int4(q["q4"], q["s4"]).to(bf)
+        return (q["q"].float() * s).to(bf)
+
+    out = []
+    for l in range(L):
+        if "q4" in dual:
+            wo = quant.dequantize_int4(dual["q4"][l, :D // 2], dual["s4"][l, :D // 256]).to(bf)
+            wf = quant.dequantize_int4(dual["q4"][l, D // 2:], dual["s4"][l, D // 256:]).to(bf)
+            wi = quant.dequantize_int4(w_in["q4"][l], w_in["s4"][l]).to(bf)
+        else:
+            wo = (dual["q"][l, :D].float() * dual["s"][l, 0]).to(bf)
+            wf = (dual["q"][l, D:].float() * dual["s"][l, 1]).to(bf)
+            wi = (w_in["q"][l].float() * w_in["s"][l]).to(bf)
+        ads = [None if fz is None else dict(
+            wd=(fz["wd"][l].float() * fz["sd"][l]).to(bf), bd=fz["bd"][l, 0].to(bf),
+            wu=(fz["wu"][l].float() * fz["su"][l]).to(bf), bu=fz["bu"][l, 0].to(bf))
+            for fz in fz_list]
+        out.append(dict(o=wo, f=wf, w_in=wi, ad=ads))
+    return out
+
+
+def _chain_step(torch, lib, vecs, fused, x, u_in, sincos, kc, vc, kvs, pos, layers, kw):
+    """The same ops as bf16 PyTorch calls over dequantised weights, layer by
+    layer: rotary, the decode attention over the cache, gelu, the two dual
+    matmuls, biases, adapters, residual, LayerNorm, the next in_proj."""
+    import torch.nn.functional as F
+
+    from magma_tpu_torch.ops.attention import decode_attention
+    from magma_tpu_torch.ops.rotary import apply_rotary
+
+    bf = torch.bfloat16
+    h = kw["n_heads"]
+    D = x.shape[1]
+    hd = D // h
+    sin, cos = sincos
+    rd = 2 * sin.shape[-1]
+    srcs = (kw.get("attn_src", "out"), kw.get("mlp_src", "out"))
+    for l in layers:
+        p = lib[l]
+        q, k, v = (fused[:, i * D:(i + 1) * D].reshape(1, 1, h, hd) for i in range(3))
+        q, k = apply_rotary(q, sin, cos, rd), apply_rotary(k, sin, cos, rd)
+        scales = None if kvs is None else (kvs[0][l], kvs[1][l])
+        ctx = decode_attention(q, kc[l], vc[l], pos, scale=kw["scale"], self_kv=(k, v),
+                               kv_scales=scales).reshape(1, D)
+        mh = F.gelu(fused[:, 3 * D:] + vecs["b_fc_in"][l].to(bf), approximate="tanh")
+        a = ctx @ p["o"]
+        if kw.get("o_bias") is not None:
+            a = a + vecs["o_bias"][l].to(bf)
+        m = mh @ p["f"] + vecs["b_fc_out"][l].to(bf)
+        outs = []
+        for br, ad, src in zip((a, m), p["ad"], srcs):
+            if ad is not None:
+                inp = u_in if src == "in" else br
+                br = br + (torch.relu(inp @ ad["wd"] + ad["bd"]) @ ad["wu"] + ad["bu"])
+            outs.append(br)
+        x = x + outs[0] + outs[1]
+        u_in = F.layer_norm(x.float(), (D,), vecs["ln_g"][l], vecs["ln_b"][l]).to(bf)
+        if l + 1 < len(lib):
+            fused = u_in @ lib[l + 1]["w_in"]
+    return x
+
+
+def _declayer_work(fz_list, dual, w_in, kc, kvs, pos, layers, in_layers, has_ob, D, F_, h, hd):
+    """(bytes, operations) of the weights and cache that the layers read:
+    each layer's dual, adapters and vectors, the next in_proj of each layer
+    in ``in_layers``, and the cache rows below pos (with their scales).
+    The caller adds the activations read and written."""
+    n_bytes = ops = 0
+    for l in layers:
+        n_bytes += nbytes(*[t[l] for t in dual.values()]) + (F_ + (3 + has_ob) * D) * 4
+        ops += 2 * (D + F_) * D + 4 * pos * h * hd
+        for fz in fz_list:
+            if fz is not None:
+                n_bytes += nbytes(*[fz[k][l] for k in ("wd", "wu", "sd", "bd", "su", "bu")])
+                ops += 4 * D * fz["wd"].shape[2]
+        n_bytes += 2 * pos * h * hd * kc.element_size() + (2 * pos * h * 2 if kvs else 0)
+        if l in in_layers:
+            n_bytes += nbytes(*[t[l + 1] for t in w_in.values()])
+            ops += 2 * D * (3 * D + F_)
+    return n_bytes, ops
+
+
+def phase_decode_layer_kernels(torch):
+    """K7 and K8 against their plain versions at full width.  Returns their
+    JSON entries by wrapper name (launches unset)."""
+    import torch.nn.functional as F  # noqa: F401  (the chain's ops)
+
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.ops import decode_layer as dl
+    from magma_tpu_torch.ops import quant
+    from magma_tpu_torch.ops.rotary import rotary_sincos
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    L, D, F_, DH, h, hd, MAX_LEN, POS = 28, 4096, 16384, 1024, 16, 256, 256, 180
+    bf = torch.bfloat16
+    entries = {}
+
+    def report(wrapper, label, errs, ok, timed=None):
+        print(f"[{label}] max|kernel-plain| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; within tolerance: {ok}")
+        check(ok, f"{label}: kernel differs from its plain version: {errs}")
+        entry = entries.setdefault(wrapper, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], *errs.values())
+        if timed is not None:
+            entry.update(timed)
+
+    def compare(got, ref, names, rel, min_equal, label):
+        """K7's rule (min_equal set): v_new exact, k_new within one bf16 ulp
+        of each value, the rest within rel max|ref| and min_equal of the
+        elements equal.  K8's (min_equal None): all within rel max|ref|."""
+        errs, ok = {}, True
+        for gt, rf, name in zip(got, ref, names):
+            diff = (gt.float() - rf.float()).abs()
+            errs[name] = diff.max().item()
+            if name == "v_new" and min_equal is not None:
+                ok = ok and torch.equal(gt, rf)
+            elif name == "k_new" and min_equal is not None:
+                ok = ok and bool((diff <= 2.0 ** -7 * rf.float().abs()).all())
+            else:
+                tol = rel * rf.float().abs().max().item()
+                equal = (diff == 0).float().mean().item()
+                ok = ok and errs[name] <= tol and (min_equal is None or equal >= min_equal)
+                print(f"[{label}]   {name}: max|diff| {errs[name]:.3e} (tol {tol:.3e}), "
+                      f"{equal:.4%} of elements equal")
+        return errs, ok
+
+    shape = (L, 1, MAX_LEN, h, hd)
+    k_bf, v_bf = (torch.randn(shape, generator=g, device=dev).to(bf) for _ in range(2))
+    (k8, ks), (v8, vs) = gptj._quantize_kv(k_bf), gptj._quantize_kv(v_bf)
+    caches = {"bf16": (k_bf, v_bf, None), "int8": (k8, v8, (ks, vs))}
+    ins = dict(fused=torch.randn((1, 3 * D + F_), generator=g, device=dev).to(bf),
+               x=(torch.randn((1, D), generator=g, device=dev) * 0.3).to(bf),
+               u=torch.randn((1, D), generator=g, device=dev).to(bf))
+    for fmt in ("int4", "int8"):
+        dual, w_in, ad1, ad2, vecs = _declayer_stacks(torch, g, fmt, L, D, F_, DH)
+        lib = _dequant_chain_weights(torch, quant, dual, w_in, (ad2, ad1), D, L)
+        lib_v1 = [dict(p, ad=[None, p["ad"][1]]) for p in lib]
+        recipes = {"v1": (dict(fz_mlp=ad1, mlp_src="out"), lib_v1),
+                   "scaled": (dict(fz_mlp=ad1, mlp_src="out", fz_attn=ad2, attn_src="in",
+                                   o_bias=vecs["o_bias"]), lib)}
+        ops_rate = INT8_OPS if fmt == "int4" else BF16_FLOPS
+        for kv, (kc, vc, kvs) in caches.items():
+            for recipe, (rkw, rlib) in recipes.items():
+                kw = dict(rkw, n_heads=h, scale=hd ** -0.5)
+                fz_list = (rkw.get("fz_attn"), rkw["fz_mlp"])
+                pos_cases = [POS] + ([0] if kv == "bf16" and recipe == "v1" else [])
+                for pos in pos_cases:
+                    sincos = rotary_sincos(torch.tensor([pos], device=dev), 64)
+                    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+                    cache_args = (kc, vc, kvs, pos_t)
+                    tag = f"{fmt}, {kv} cache, {recipe}, pos {pos}"
+                    vec_args = (vecs["b_fc_in"], vecs["b_fc_out"], vecs["ln_g"], vecs["ln_b"])
+                    if pos == POS:  # K7 at a middle layer with w_in and at the last one
+                        for layer in (13, L - 1):
+                            with_in = layer < L - 1
+                            args = (ins["fused"], ins["x"], sincos, *cache_args, dual, *vec_args,
+                                    layer)
+                            ckw = dict(kw, w_in=w_in if with_in else None, u_in=ins["u"])
+                            got = dl.decode_layer_fused(*args, **ckw)
+                            ref = dl.decode_layer_plain(*args, **ckw)
+                            torch.cuda.synchronize()
+                            names = (("y", "u", "fused") if with_in else ("y", "u")) + \
+                                ("k_new", "v_new")
+                            label = f"K7 layer {layer}, {tag}"
+                            errs, ok = compare(got, ref, names, K7_REL_TOL, K7_MIN_EQUAL, label)
+                            n_bytes, ops = _declayer_work(
+                                fz_list, dual, w_in, kc, kvs, pos, [layer],
+                                [layer] if with_in else [], "o_bias" in rkw, D, F_, h, hd)
+                            # fused, x, u in; y, u, [fused], k_new, v_new out
+                            n_bytes += (3 * D + F_) * 2 * (1 + with_in) + 2 * D * 2 + 4 * D * 2
+                            tm = _timing(
+                                torch, label, 1, lambda: dl.decode_layer_fused(*args, **ckw),
+                                lambda: dl.decode_layer_plain(*args, **ckw),
+                                lambda: _chain_step(torch, rlib, vecs, ins["fused"], ins["x"],
+                                                    ins["u"], sincos, kc, vc, kvs, pos_t,
+                                                    [layer], kw),
+                                n_bytes, ops, "decode_layers_kernel", ops_per_s=ops_rate,
+                                library_is="the same ops as a chain of bf16 PyTorch calls")
+                            main = fmt == "int4" and kv == "bf16" and recipe == "v1" and with_in
+                            report("decode_layer_kernel", label, errs, ok,
+                                   dict(tm, library_ms=None, chain_ms=tm["library_ms"])
+                                   if main else None)
+                    # K8 over all layers
+                    args = (ins["fused"], ins["x"], ins["u"], sincos, *cache_args, dual, w_in,
+                            *vec_args)
+                    got = dl.decode_all_layers_fused(*args, **kw)
+                    ref = dl.decode_all_layers_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    label = f"K8, {tag}"
+                    errs, ok = compare(got, ref, ("y", "k_new", "v_new"), K8_REL_TOL, None, label)
+                    e0, ok0 = compare((got[1][0], got[2][0]), (ref[1][0], ref[2][0]),
+                                      ("k_new", "v_new"), 0, 1.0, label + ", layer 0")
+                    n_bytes, ops = _declayer_work(
+                        fz_list, dual, w_in, kc, kvs, pos, range(L), range(L - 1),
+                        "o_bias" in rkw, D, F_, h, hd)
+                    # fused0, x0, u0 in; y and L rows of k_new and v_new out
+                    n_bytes += (3 * D + F_) * 2 + 2 * D * 2 + D * 2 + 2 * L * D * 2
+                    tm = _timing(torch, label, 1, lambda: dl.decode_all_layers_fused(*args, **kw),
+                                 lambda: dl.decode_all_layers_plain(*args, **kw),
+                                 lambda: _chain_step(torch, rlib, vecs, ins["fused"], ins["x"],
+                                                     ins["u"], sincos, kc, vc, kvs, pos_t,
+                                                     range(L), kw),
+                                 n_bytes, ops, "decode_layers_kernel", ops_per_s=ops_rate,
+                                 library_is="the same ops as a chain of bf16 PyTorch calls",
+                                 plain_iters=2)
+                    main = fmt == "int4" and kv == "bf16" and recipe == "v1" and pos == POS
+                    report("decode_all_layers_kernel", label, {**errs, "k0": e0["k_new"]},
+                           ok and ok0,
+                           dict(tm, library_ms=None, chain_ms=tm["library_ms"]) if main else None)
+                    if main or (fmt == "int8" and kv == "bf16" and recipe == "v1" and pos == POS):
+                        _k7_chain_vs_k8(torch, dl, args, kw, L, label)
+        del dual, w_in, ad1, ad2, vecs, lib, lib_v1, recipes
+        gc.collect()
+        torch.cuda.empty_cache()
+    _grid_barrier_cost(torch, L)
+    for wrapper, (name, replaces, source) in DECODE_KERNELS.items():
+        entries[wrapper].update(name=name, route="cuda", replaces=replaces, source=source)
+    return entries
+
+
+def _grid_barrier_cost(torch, L):
+    """What K8's grid barriers cost alone: cooperative launches of K8's grid
+    that cross n barriers and do nothing else (``magma_grid_sync_probe``),
+    timed by CUDA events; the slope over n is the cost of one barrier."""
+    import ctypes
+
+    from magma_tpu_torch.cuda_build import load_library
+
+    probe = load_library().magma_grid_sync_probe
+    probe.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    per_step = 9 * (L - 1) + 6  # K8's barriers in an L-layer step
+
+    def run(n):
+        err = probe(n, stream)
+        check(err == 0, f"grid barrier probe failed: cudaError {err}")
+
+    ms = {n: cuda_ms(lambda n=n: run(n), iters=20) for n in (0, per_step, 10 * per_step)}
+    us = (ms[10 * per_step] - ms[0]) / (10 * per_step) * 1e3
+    print(f"[K8 barriers] one grid barrier of K8's grid alone: {us:.3f} us (CUDA events, median "
+          f"of 20; launches of 0, {per_step} and {10 * per_step} barriers: "
+          + ", ".join(f"{v:.4f} ms" for v in ms.values())
+          + f"); {per_step} a {L}-layer step: {per_step * us / 1e3:.4f} ms")
+
+
+def _k7_chain_vs_k8(torch, dl, args, kw, L, label):
+    """One decode step as 28 K7 launches against one K8 launch: the same
+    device code, so the same bits; the difference in time is what 27 more
+    launches cost (JAX's reason for K8, decode_layer.py:830-838)."""
+    fused0, x0, u0, sincos, kc, vc, kvs, pos_t, dual, w_in, *vec_args = args
+
+    def k7_chain():
+        f, xx, uu = fused0, x0, u0
+        rows = []
+        for l in range(L):
+            outs = dl.decode_layer_fused(f, xx, sincos, kc, vc, kvs, pos_t, dual, *vec_args, l,
+                                         w_in=w_in if l < L - 1 else None, u_in=uu, **kw)
+            if l < L - 1:
+                xx, uu, f = outs[:3]
+            else:
+                xx, uu = outs[:2]
+            rows.append(outs[-2])
+        return xx, torch.stack(rows)
+
+    def k8():
+        return dl.decode_all_layers_fused(*args, **kw)
+
+    y7, k7 = k7_chain()
+    y8, k8_rows, _ = k8()
+    torch.cuda.synchronize()
+    same = torch.equal(y7, y8) and torch.equal(k7, k8_rows)
+    ms7, ms8 = cuda_ms(k7_chain, iters=10), cuda_ms(k8, iters=10)
+    print(f"[{label}] 28 K7 launches {ms7:.4f} ms vs one K8 launch {ms8:.4f} ms a step "
+          f"(CUDA events, median of 10): {ms7 - ms8:.4f} ms for 27 more launches; "
+          f"y and k_new bit-equal: {same}")
+    check(same, f"{label}: the K7 chain differs from K8")
+
+
 def _requests():
     return [
         ("greedy", dict(temperature=0.0)),
@@ -898,33 +1273,41 @@ def _dequantised_lm(torch, lm, cfg):
     return out
 
 
+def _all_wrappers():
+    """Every kernel wrapper by name, K1 included."""
+    from magma_tpu_torch.ops import decode_layer, quant
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+    wrappers = {name: getattr(quant, name) for name in (*INT8_KERNELS, *INT4_KERNELS)}
+    wrappers.update({name: getattr(decode_layer, name) for name in DECODE_KERNELS})
+    wrappers["flash_attention_kernel"] = flash_attention_kernel
+    return wrappers
+
+
 def _want_launches(bits, L, steps):
     """Exact launches of one request of ``steps`` tokens (1 prefill + steps-1
     decode forwards) on the v1 recipe, by wrapper."""
     if bits == 8:
-        # K2b and K4a once a layer a forward, K2a once a forward; K5 once a
-        # layer in decode only (the prefill's 192 rows take the dequantising
-        # matmul); K1 once a layer's prefill
-        want = {"int8_matmul_stacked_kernel": L * steps, "dual_matmul_kernel": L * steps,
-                "int8_matmul_kernel": steps, "fused_adapter_kernel": L * (steps - 1)}
+        # prefill: K2b and K4a once a layer (the adapter's 192 rows take the
+        # dequantising matmul, no K5); a decode step: K2b for layer 0's
+        # in_proj, then one K8 for all layers; K2a once a forward
+        want = {"int8_matmul_stacked_kernel": L + steps - 1, "dual_matmul_kernel": L,
+                "int8_matmul_kernel": steps}
     else:
-        # prefill: K3 and K4b once a layer; a decode step: K3 for layer 0's
-        # in_proj, then K6 once a layer (the next in_proj and the adapter
-        # inside it); K2a (the int8 head) once a forward; no K5
+        # the same with K3 and K4b; no K6
         want = {"int4_matmul_stacked_kernel": L + steps - 1, "int4_dual_kernel": L,
-                "boundary_kernel": L * (steps - 1), "int8_matmul_kernel": steps}
+                "int8_matmul_kernel": steps}
+    want["decode_all_layers_kernel"] = steps - 1
     want["flash_attention_kernel"] = L
-    return {k: want.get(k, 0) for k in (*INT8_KERNELS, *INT4_KERNELS, "flash_attention_kernel")}
+    return {k: want.get(k, 0) for k in _all_wrappers()}
 
 
 def phase_quantized(torch, model, bits):
     """The int8 (bits=8) or int4 (bits=4) caption path:
     quantize_for_serving(bits), three requests with exact launch counts of
     every kernel, and the greedy prefill logits against the bf16 path over
-    the dequantised packs.  Returns the launches by wrapper."""
-    from magma_tpu_torch.ops import quant
-    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
-
+    the dequantised packs.  Returns (launches by wrapper, the greedy
+    request's embeddings and tokens)."""
     tag = f"int{bits}"
     tol = INT8_LOGIT_TOL if bits == 8 else INT4_LOGIT_TOL
     lm = model.lm_config
@@ -940,22 +1323,7 @@ def phase_quantized(torch, model, bits):
     print(f"[{tag}] quantize_for_serving({bits}) in {time.perf_counter() - t0:.1f} s: LM "
           f"{n_lm / 1e9:.2f} GB ({tag} packs, fp32 scales, bf16 wte), vision tower BN-folded")
     ref_lm = _dequantised_lm(torch, model.params["lm"], lm)
-
-    wrappers = {name: getattr(quant, name) for name in (*INT8_KERNELS, *INT4_KERNELS)}
-    wrappers["flash_attention_kernel"] = flash_attention_kernel
-    for fn in wrappers.values():
-        fn.launches = 0  # count the main path only
-    greedy = None
-    for i, (name, kw) in enumerate(_requests()):
-        before = {k: fn.launches for k, fn in wrappers.items()}
-        emb, tokens, steps = _run_request(torch, model, i, name, kw, tag)
-        got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
-        want = _want_launches(bits, L, steps)
-        print(f"[{tag}]   launches {got}")
-        check(got == want, f"{tag} request {i}: launches {got}, expected {want}")
-        if greedy is None:
-            greedy = (emb, tokens)
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches, greedy = _requests_with_launches(torch, model, bits, tag)
     print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"({tag} model, its dequantised bf16 copy and the requests)")
 
@@ -977,19 +1345,253 @@ def phase_quantized(torch, model, bits):
                      ref_tokens, tokens)
     del ref_lm
     profile_decode_step(torch, model, emb, tag)
-    return launches
+    return launches, emb, tokens
+
+
+def _requests_with_launches(torch, model, bits, tag):
+    """The three requests, each with exact launches of every kernel, counts
+    set to 0 just before.  Returns (launches by wrapper, (greedy request's
+    embeddings, tokens))."""
+    L = model.lm_config.n_layers
+    wrappers = _all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0  # count this path only
+    greedy = None
+    for i, (name, kw) in enumerate(_requests()):
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        emb, tokens, steps = _run_request(torch, model, i, name, kw, tag)
+        got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        want = _want_launches(bits, L, steps)
+        print(f"[{tag}]   launches {got}")
+        check(got == want, f"{tag} request {i}: launches {got}, expected {want}")
+        if greedy is None:
+            greedy = (emb, tokens)
+    return {k: fn.launches for k, fn in wrappers.items()}, greedy
 
 
 def phase_int4(torch):
     """Phase 6: a fresh model from the same seed (int4 starts from full
-    precision), then the int4 caption path."""
+    precision), then the int4 caption path.  Returns (model, launches,
+    greedy embeddings, greedy tokens)."""
     from magma_tpu_torch.models.magma import Magma
 
     t0 = time.perf_counter()
     model = Magma(CONFIG, seed=0, device=torch.device("cuda"))
     torch.cuda.synchronize()
     print(f"[int4] Magma({CONFIG.name}) rebuilt from seed 0 in {time.perf_counter() - t0:.1f} s")
-    return phase_quantized(torch, model, 4)
+    return (model, *phase_quantized(torch, model, 4))
+
+
+def _prefilled_cache(torch, cfg, lm, emb):
+    """The prompt's prefill into a fresh cache of generate's length."""
+    from magma_tpu_torch.models import gptj
+
+    s = emb.shape[1]
+    padded = torch.nn.functional.pad(emb, (0, 0, 0, (-s) % 64))
+    max_len = -(-(s + MAX_STEPS) // 64) * 64
+    cache = gptj.init_kv_cache(cfg, 1, max_len, device=emb.device)
+    kv_len = torch.full((1,), s, dtype=torch.int32, device=emb.device)
+    gptj.forward(cfg, lm, padded, cache=cache, cache_index=0, kv_len=kv_len, return_hidden=True)
+    return cache
+
+
+def _step_without_k8(torch, cfg, lm, x, cache, idx):
+    """One b=1 decode step on the path a b <= 8 step takes: the boundary
+    decode (int4: layer 0's K3, then K6 once a layer) or the per-layer
+    chain (int8: K2b, K4a, K5 a layer).  Returns (hidden after the last
+    layer, new keys, new values (L, 1, 1, h, hd))."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.ops.rotary import rotary_sincos
+
+    blocks = lm["blocks"]
+    sin, cos = rotary_sincos(idx.reshape(1, 1), cfg.rotary_dim)
+    if gptj._boundary_ok(cfg, blocks, x):
+        return gptj._run_decode_boundary(cfg, blocks, x, sin, cos, cache, idx)
+    kn, vn = [], []
+    for i, bp in enumerate(gptj._layer_views(blocks, cfg.n_layers)):
+        x, (k, v) = gptj._block(cfg, bp, x, sin, cos, None, (cache, i), idx)
+        kn.append(k)
+        vn.append(v)
+    return x, torch.stack(kn), torch.stack(vn)
+
+
+def _step_k7(torch, cfg, lm, x, cache, idx):
+    """One b=1 decode step as 28 K7 launches (``decode_layer_fused``), fed
+    as ``gptj._run_decode_fused_layers`` feeds K8.  Returns (hidden, new
+    keys, new values (L, 1, 1, h, hd))."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.ops.decode_layer import decode_layer_fused
+    from magma_tpu_torch.ops.rotary import rotary_sincos
+
+    blocks = lm["blocks"]
+    attn_w, bv = blocks["attn"], blocks["bvecs"]
+    L, D, h, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim
+    kw = dict(n_heads=h, scale=hd ** -0.5, ln_eps=cfg.ln_eps, o_bias=bv.get("o_bias"),
+              **gptj._fused_adapter_kwargs(cfg, blocks))
+    sincos = rotary_sincos(idx.reshape(1), cfg.rotary_dim)
+    kvs = (cache["k_scale"], cache["v_scale"]) if "k_scale" in cache else None
+    xx = x.reshape(1, D)
+    u = gptj._layer_norm(xx, {"scale": blocks["ln_1"]["scale"][0],
+                              "bias": blocks["ln_1"]["bias"][0]}, cfg.ln_eps, cfg.compute_dtype)
+    fused = gptj._mm(u, {**attn_w["in_proj"], "idx": 0}, cfg.compute_dtype)
+    fc_in_b = blocks["mlp"]["fc_in"]["bias"].float()
+    kn, vn = [], []
+    for l in range(L):
+        outs = decode_layer_fused(fused, xx, sincos, cache["k"], cache["v"], kvs, idx,
+                                  attn_w["out_proj"], fc_in_b, bv["b_fc_out"], bv["ln_g"],
+                                  bv["ln_b"], l, w_in=attn_w["in_proj"] if l < L - 1 else None,
+                                  u_in=u, **kw)
+        if l < L - 1:
+            xx, u, fused = outs[:3]
+        else:
+            xx, u = outs[:2]
+        kn.append(outs[-2])
+        vn.append(outs[-1])
+    return (xx.reshape(1, 1, D), torch.stack(kn).reshape(L, 1, 1, h, hd),
+            torch.stack(vn).reshape(L, 1, 1, h, hd))
+
+
+def _step_k8_plain(torch, cfg, lm, x, cache, idx):
+    """One b=1 decode step fed as ``gptj._run_decode_fused_layers`` feeds K8,
+    with K8's plain version (the JAX oracle's arithmetic) in its place."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.ops import decode_layer
+
+    entry = decode_layer.decode_all_layers_fused
+    decode_layer.decode_all_layers_fused = decode_layer.decode_all_layers_plain
+    try:
+        return gptj._run_decode_fused_layers(cfg, lm["blocks"], x, idx.reshape(1, 1), cache, idx)
+    finally:
+        decode_layer.decode_all_layers_fused = entry
+
+
+def _new_entries(cache, idx):
+    """The cache entries written at position idx, by leaf, as fp32, and the
+    K and V entries as the values attention reads (codes times scales for
+    an int8 cache), each (L, h, hd)."""
+    i = int(idx)
+    leaves = {k: (t[:, 0, i] if k in ("k", "v") else t[:, 0, :, i]).float()
+              for k, t in cache.items()}
+    values = {k: leaves[k] * leaves[f"{k}_scale"][..., None] if "k_scale" in cache
+              else leaves[k] for k in ("k", "v")}
+    return leaves, values
+
+
+def _rel(a, b):
+    """max|a - b| / max|b|, JAX's measure for this comparison."""
+    return ((a - b).abs().max() / (b.abs().max() + 1e-6)).item()
+
+
+def phase_decode_agreement(torch, model, emb, tokens, tag):
+    """Phases 5b and 6b: one decode step on the greedy request's prefilled
+    cache, bf16 and int8, through K8, through the b <= 8 path (K6 or K5 on
+    their decode paths), through 28 K7 launches and through K8's plain
+    version.  Returns the launches by wrapper, counted from 0 over the
+    phase."""
+    from magma_tpu_torch.models import gptj
+
+    cfg0, lm = model.lm_config, model.params["lm"]
+    L = cfg0.n_layers
+    dev = emb.device
+    wrappers = _all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0  # count this path only
+    x = gptj.embed_tokens(cfg0, lm, torch.as_tensor(tokens[:, :1], device=dev))
+    idx = torch.full((1,), emb.shape[1], dtype=torch.int32, device=dev)
+    for kv in ("bf16", "int8"):
+        cfg = dataclasses.replace(cfg0, kv_cache_dtype=kv)
+        cache = _prefilled_cache(torch, cfg, lm, emb)
+        check(gptj._declayer_ok(cfg, lm["blocks"], x, cache), f"{tag}: the K8 gate refused")
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        steps = {}
+        for path, step in (("K8", lambda c: gptj._run_decode_fused_layers(cfg, lm["blocks"], x,
+                                                                        idx.reshape(1, 1), c, idx)),
+                           ("b <= 8", lambda c: _step_without_k8(torch, cfg, lm, x, c, idx)),
+                           ("28 x K7", lambda c: _step_k7(torch, cfg, lm, x, c, idx)),
+                           ("K8 plain", lambda c: _step_k8_plain(torch, cfg, lm, x, c, idx))):
+            c = {k: t.clone() for k, t in cache.items()}
+            hid, kn, vn = step(c)
+            c = gptj._write_cache(c, kn, vn, idx)
+            logits = gptj.lm_head(cfg, lm, gptj._layer_norm(hid, lm["ln_f"], cfg.ln_eps,
+                                                            cfg.compute_dtype))[0, -1]
+            steps[path] = (hid, logits, c)
+        torch.cuda.synchronize()
+        got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        print(f"[{tag} agreement] {kv} cache: launches {got}")
+        k_b8 = "boundary_kernel" if "q4" in lm["blocks"]["attn"]["in_proj"] else \
+            "fused_adapter_kernel"
+        check(got["decode_all_layers_kernel"] == 1 and got["decode_layer_kernel"] == L
+              and got[k_b8] == L, f"{tag} agreement: launches {got}")
+        _, lb, cb = steps["b <= 8"]
+        leaves_b, values_b = _new_entries(cb, idx)
+        measured = {}
+        for path in ("K8", "K8 plain"):
+            _, lg, c = steps[path]
+            leaves, values = _new_entries(c, idx)
+            measured[path] = dict(
+                logits=_rel(lg, lb), argmax=int(lg.argmax()) == int(lb.argmax()),
+                leaves={k: _rel(leaves[k], leaves_b[k]) for k in leaves_b},
+                values={k: _rel(values[k], values_b[k]) for k in values_b},
+                layers={k: [_rel(values[k][l], values_b[k][l]) for l in range(L)]
+                        for k in values_b})
+            m = measured[path]
+            print(f"[{tag} agreement] {kv} cache, {path} vs the b <= 8 path ({k_b8}): logits rel "
+                  f"{m['logits']:.3e}, argmax equal {m['argmax']}, new cache entries rel by "
+                  f"leaf " + ", ".join(f"{k} {v:.3e}" for k, v in m["leaves"].items())
+                  + ", as values " + ", ".join(f"{k} {v:.3e}" for k, v in m["values"].items()))
+            print(f"[{tag} agreement] {kv} cache, {path}: k entries rel by layer "
+                  + " ".join(f"{v:.1e}" for v in m["layers"]["k"]))
+        # JAX's bounds on the logits and on every leaf of a bf16 cache and
+        # the scales of an int8 one; the int8 codes are held as the values
+        # they stand for (code x scale): each code is relative to its own
+        # (position, head) row's largest value, so a leaf-wide measure on
+        # the codes magnifies a row at a third of the layer's largest value
+        # three times
+        m = measured["K8"]
+        held = {k: v for k, v in m["leaves"].items() if kv == "bf16" or k.endswith("_scale")}
+        held.update({f"{k} values": v for k, v in m["values"].items()} if kv == "int8" else {})
+        print(f"[{tag} agreement] {kv} cache, K8 vs the b <= 8 path: held to {PATH_REL_TOL}: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in held.items()))
+        check(m["logits"] < PATH_REL_TOL and m["argmax"],
+              f"{tag} {kv}: K8 vs b <= 8 logits rel {m['logits']}")
+        check(all(v < PATH_REL_TOL for v in held.values()),
+              f"{tag} {kv}: new cache entries differ: {held}")
+        c8 = steps["K8"][2]
+        (h7, _, c7), (h8, _, _) = steps["28 x K7"], steps["K8"]
+        same = torch.equal(h7, h8) and all(torch.equal(c7[k], c8[k]) for k in c8)
+        print(f"[{tag} agreement] {kv} cache, 28 K7 launches vs one K8: hidden state and "
+              f"cache bit-equal: {same}")
+        check(same, f"{tag} {kv}: the K7 chain differs from K8")
+        del cache, steps
+    return {k: fn.launches for k, fn in wrappers.items()}
+
+
+def phase_int4_kv8(torch, model, emb, tokens6):
+    """Phase 7: the int4 model with an int8 cache answers the three
+    requests with exact launches; its greedy prefill logits equal phase 6's
+    bit for bit.  Returns the launches by wrapper."""
+    from magma_tpu_torch.models import gptj
+
+    cfg6 = model.lm_config
+    cfg7 = dataclasses.replace(cfg6, kv_cache_dtype="int8")
+    lm = model.params["lm"]
+    max_len = -(-(emb.shape[1] + MAX_STEPS) // 64) * 64
+    bytes6 = nbytes(*gptj.init_kv_cache(cfg6, 1, max_len, device=emb.device).values())
+    bytes7 = nbytes(*gptj.init_kv_cache(cfg7, 1, max_len, device=emb.device).values())
+    print(f"[int4+kv8] the KV cache of a request ({max_len} positions): {bytes7 / 1e6:.2f} MB "
+          f"int8 with bf16 scales, against {bytes6 / 1e6:.2f} MB bf16")
+    model.lm_config = cfg7
+    launches, (emb7, tokens7) = _requests_with_launches(torch, model, 4, "int4+kv8")
+    l6 = _prefill_last_logits(torch, cfg6, lm, emb7)
+    l7 = _prefill_last_logits(torch, cfg7, lm, emb7)
+    same = torch.equal(l6, l7)
+    print(f"[int4+kv8] greedy prefill logits equal to the bf16 cache's bit for bit: {same}")
+    check(same, "the int8 cache changed the prefill logits")
+    _print_agreement("[int4+kv8] greedy tokens, int8 cache vs bf16 cache (phase 6)",
+                     tokens6, tokens7)
+    profile_decode_step(torch, model, emb7, "int4+kv8")
+    model.lm_config = cfg6
+    return launches
 
 
 def main() -> int:
@@ -1007,27 +1609,29 @@ def main() -> int:
     k1 = phase_kernel(torch)
     int8_entries = phase_int8_kernels(torch)
     int4_entries = phase_int4_kernels(torch)
+    decode_entries = phase_decode_layer_kernels(torch)
     model, emb, greedy_tokens, bf16_launches = phase_slice(torch)
     check(bf16_launches > 0, "the bf16 path launched no K1 kernel")
     phase_kernel_vs_plain_path(torch, model, emb, greedy_tokens)
-    launches8 = phase_quantized(torch, model, 8)
-    for wrapper in (*INT8_KERNELS, "flash_attention_kernel"):
-        check(launches8[wrapper] > 0, f"the int8 path launched no {wrapper}")
+    paths = {"int8": phase_quantized(torch, model, 8)}
+    paths["int8 agreement"] = phase_decode_agreement(torch, model, *paths["int8"][1:], "int8")
+    paths["int8"] = paths["int8"][0]
     del model, emb, greedy_tokens  # free the int8 model before the int4 one
     gc.collect()
     torch.cuda.empty_cache()
-    launches4 = phase_int4(torch)
-    for wrapper in (*INT4_KERNELS, "int8_matmul_kernel", "flash_attention_kernel"):
-        check(launches4[wrapper] > 0, f"the int4 path launched no {wrapper}")
+    model, launches4, emb4, tokens4 = phase_int4(torch)
+    paths["int4"] = launches4
+    paths["int4 agreement"] = phase_decode_agreement(torch, model, emb4, tokens4, "int4")
+    paths["int4+kv8"] = phase_int4_kv8(torch, model, emb4, tokens4)
 
-    k1["launches"] = (bf16_launches + launches8["flash_attention_kernel"]
-                      + launches4["flash_attention_kernel"])
-    kernels = [k1]
-    for wrapper in INT8_KERNELS:
-        kernels.append(dict(int8_entries[wrapper],
-                            launches=launches8[wrapper] + launches4[wrapper]))
-    for wrapper in INT4_KERNELS:
-        kernels.append(dict(int4_entries[wrapper], launches=launches4[wrapper]))
+    launches = {k: sum(p[k] for p in paths.values()) for k in _all_wrappers()}
+    launches["flash_attention_kernel"] += bf16_launches
+    for wrapper, n in launches.items():
+        check(n > 0, f"no path launched {wrapper}")
+    k1["launches"] = launches["flash_attention_kernel"]
+    entries = {**int8_entries, **int4_entries, **decode_entries}
+    kernels = [k1] + [dict(entries[w], launches=launches[w])
+                      for w in (*INT8_KERNELS, *INT4_KERNELS, *DECODE_KERNELS)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"done in {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -25,28 +25,19 @@
 // the whole output (the adapter's up product needs all of h, the LN all of
 // y, the in_proj all of u), which no one block owns.  So, as K5 does, the
 // kernel is one cooperative launch of at most the co-resident block count,
-// with cooperative_groups::this_grid().sync() between the phases:
-//   A  dual terms: warp items (group, 32-column slice), the W4A8 group term
-//      of w4a8.cuh written to an fp32 scratch (40 groups x 128 slices);
-//   B  a, m: each element sums its groups' terms in order (the plain
-//      version's bits) and adds the biases in bf16;
-//   C  adapter down products (block items, the int8 GEMV of int8_gemv.cuh),
-//      h rounded to bf16 into scratch;
-//   D  adapter up products and the residual: y;
-//   E  LN: every block computes the rows' statistics itself from y (4096
-//      values a row, cheaper than another barrier), then its share of u;
-//   F  in_proj terms: warp items (group, slice) on u, as in A (8 x 896);
-//   G  fused: each element sums its 8 terms in order.
-// No float atomics: every sum has a fixed order and the result repeats
-// from run to run.  Scratch (terms, a, m, h) comes from the wrapper.
+// with cooperative_groups::this_grid().sync() between the phases A-G of
+// layer_phases.cuh (shared with K7 and K8): dual terms (warp items (group,
+// 32-column slice), 40 groups x 128 slices), a and m, adapter down, adapter
+// up and the residual, LN, in_proj terms (8 x 896), fused.  No float
+// atomics: every sum has a fixed order and the result repeats from run to
+// run.  Scratch (terms, a, m, h) comes from the wrapper.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_gemv.cuh"
-#include "w4a8.cuh"
+#include "layer_phases.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -54,207 +45,24 @@ namespace {
 
 constexpr int MAX_ROWS = 8;
 
-struct Adapter {
-  const int8_t* wd;  // (d, dh)
-  const float* sd;   // (dh,)
-  const float* bd;   // (dh,)
-  const int8_t* wu;  // (dh, d)
-  const float* su;   // (d,)
-  const float* bu;   // (d,)
-  int dh;            // 0: no adapter here
-  int src_in;        // 1: fed from u_in, 0: from its branch's output
-  __nv_bfloat16* h;  // (m, dh) scratch
-};
-
-struct Params {
-  int m, d, f, ni;
-  float eps;
-  const __nv_bfloat16 *ctx, *mh, *x, *u_in;  // (m, d), (m, f), (m, d), (m, d) or null
-  const int8_t* q4d;                         // (d/2 + f/2, d)
-  const float* s4d;                          // (d/256 + f/256, d)
-  const float *b_fc_out, *ln_g, *ln_b, *o_bias;  // (d,); o_bias may be null
-  Adapter ad[2];                             // 0: attention, 1: mlp
-  const int8_t* q4i;                         // (d/2, ni) or null (last layer)
-  const float* s4i;                          // (d/256, ni)
-  __nv_bfloat16 *y, *u, *fused;              // (m, d), (m, d), (m, ni)
-  float *terms_d, *terms_i;                  // (d/512 + f/512, m, d), (d/512, m, ni)
-  __nv_bfloat16 *ab, *mb;                    // (m, d)
-};
-
-__device__ __forceinline__ __nv_bfloat16 bf16_add(__nv_bfloat16 a, __nv_bfloat16 b) {
-  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-
-// block-wide sum of one value a thread, in a fixed order (lanes by
-// shuffles, then the warps in order); every thread gets the total
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  __syncthreads();  // red is free
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int w = 0; w < GEMV_WARPS; ++w) total += red[w];
-  return total;
-}
-
-// the W4A8 terms of one product, warp items (group, slice) over the grid:
-// terms[g][row][col] for rows < p.m
-template <int MT, bool COHERENT>
-__device__ __forceinline__ void w4a8_terms(const __nv_bfloat16* x, long long ldx, int rows, int kp,
-                                           const int8_t* q4, const float* s4, int n,
-                                           float* terms, int8_t (*codes)[MT][W4_GROUP]) {
-  const int lane = threadIdx.x & 31;
-  const int slices = n / W4_SLICE;
-  const int items = (kp / W4_GROUP) * slices;
-  const int nwarps = gridDim.x * GEMV_WARPS;
-  for (int item = blockIdx.x * GEMV_WARPS + (threadIdx.x >> 5); item < items; item += nwarps) {
-    const int g = item / slices;
-    const int col0 = (item % slices) * W4_SLICE;
-    float term[MT][4];
-    w4a8_group_term<MT, COHERENT>(x, ldx, rows, kp, q4, s4, n, g, col0, codes, term);
-    if (lane < 8) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m < rows) {
-          float* dst = terms + ((long long)g * rows + m) * n + col0 + 4 * lane;
-          *reinterpret_cast<float4*>(dst) = make_float4(term[m][0], term[m][1], term[m][2],
-                                                        term[m][3]);
-        }
-      }
-    }
-  }
-}
-
 template <int MT>
-__global__ void __launch_bounds__(GEMV_THREADS) boundary_kernel(const Params p) {
-  __shared__ __align__(16) int8_t codes[GEMV_WARPS][2][MT][W4_GROUP];
-  __shared__ float red[GEMV_WARPS][MT][GEMV_SLICE];
-  __shared__ float stats[MT][2];  // mean, 1 / sqrt(var + eps)
-  __shared__ float sum_red[GEMV_WARPS];
+__global__ void __launch_bounds__(GEMV_THREADS) boundary_kernel(const Boundary p) {
+  __shared__ __align__(16) PhaseShared<MT> sh;
   cg::grid_group grid = cg::this_grid();
-  const int warp = threadIdx.x >> 5;
-  const int t = threadIdx.x;
-  const int tm = t / GEMV_SLICE;  // the (row, column) a thread finishes in C, D
-  const int tj = t % GEMV_SLICE;
-  const bool mine = t < MT * GEMV_SLICE && tm < p.m;
-  const long long gtid = (long long)blockIdx.x * GEMV_THREADS + t;
-  const long long nthreads = (long long)gridDim.x * GEMV_THREADS;
-  const int d = p.d;
-  const int nko = d / (2 * W4_GROUP);
-  const int nkf = p.f / (2 * W4_GROUP);
-
-  // A: the dual's group terms; o_proj's groups first, then fc_out's
-  w4a8_terms<MT, false>(p.ctx, d, p.m, d / 2, p.q4d, p.s4d, d, p.terms_d, codes[warp]);
-  w4a8_terms<MT, false>(p.mh, p.f, p.m, p.f / 2, p.q4d + (long long)(d / 2) * d,
-                        p.s4d + (long long)(2 * nko) * d, d,
-                        p.terms_d + (long long)nko * p.m * d, codes[warp]);
+  phase_dual_terms<MT, true, false>(p, sh);
   grid.sync();
-
-  // B: a = bf16(acco) [+ bf16(o_bias)], m = bf16(accf) + bf16(b_fc_out)
-  for (long long i = gtid; i < (long long)p.m * d; i += nthreads) {
-    const int row = static_cast<int>(i / d);
-    const int c = static_cast<int>(i % d);
-    float ao = 0.f, af = 0.f;
-    for (int g = 0; g < nko; ++g) {
-      ao = __fadd_rn(ao, __ldcg(p.terms_d + ((long long)g * p.m + row) * d + c));
-    }
-    for (int g = nko; g < nko + nkf; ++g) {
-      af = __fadd_rn(af, __ldcg(p.terms_d + ((long long)g * p.m + row) * d + c));
-    }
-    __nv_bfloat16 a = __float2bfloat16_rn(ao);
-    if (p.o_bias) a = bf16_add(a, __float2bfloat16_rn(p.o_bias[c]));
-    p.ab[i] = a;
-    p.mb[i] = bf16_add(__float2bfloat16_rn(af), __float2bfloat16_rn(p.b_fc_out[c]));
-  }
+  phase_branch_sums<true>(p);
   grid.sync();
-
-  // C: each adapter's down product, h = bf16(relu(src @ Wd * sd + bd))
-  {
-    const int s0 = p.ad[0].dh / GEMV_SLICE, s1 = p.ad[1].dh / GEMV_SLICE;
-    for (int item = blockIdx.x; item < s0 + s1; item += gridDim.x) {
-      const int k = item < s0 ? 0 : 1;
-      const Adapter& ad = p.ad[k];
-      const int slice = k == 0 ? item : item - s0;
-      const __nv_bfloat16* src = ad.src_in ? p.u_in : (k == 0 ? p.ab : p.mb);
-      slice_gemv<MT>(src, d, p.m, ad.wd, ad.dh, 0, d, slice, red);
-      if (mine) {
-        const int c = slice * GEMV_SLICE + tj;
-        const float v = fmaxf(warp_total<MT>(red, tm, tj) * ad.sd[c] + ad.bd[c], 0.f);
-        ad.h[(long long)tm * ad.dh + c] = __float2bfloat16_rn(v);
-      }
-      __syncthreads();  // red is read before the next item overwrites it
-    }
-  }
+  phase_adapter_down<MT>(p, sh);
   grid.sync();
-
-  // D: the up products, a += bf16(z_attn), m += bf16(z_mlp), y = x + a + m
-  for (int slice = blockIdx.x; slice < d / GEMV_SLICE; slice += gridDim.x) {
-    float z[2] = {0.f, 0.f};
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const Adapter& ad = p.ad[k];
-      if (ad.dh == 0) continue;
-      slice_gemv<MT>(ad.h, ad.dh, p.m, ad.wu, d, 0, ad.dh, slice, red);
-      if (mine) {
-        const int c = slice * GEMV_SLICE + tj;
-        z[k] = warp_total<MT>(red, tm, tj) * ad.su[c] + ad.bu[c];
-      }
-      __syncthreads();
-    }
-    if (mine) {
-      const long long i = (long long)tm * d + slice * GEMV_SLICE + tj;
-      __nv_bfloat16 a = __ldcg(p.ab + i), mv = __ldcg(p.mb + i);
-      if (p.ad[0].dh) a = bf16_add(a, __float2bfloat16_rn(z[0]));
-      if (p.ad[1].dh) mv = bf16_add(mv, __float2bfloat16_rn(z[1]));
-      p.y[i] = bf16_add(bf16_add(p.x[i], a), mv);
-    }
-  }
+  phase_adapter_up_residual<MT>(p, sh);
   grid.sync();
-
-  // E: the LN of each row; every block computes the statistics itself
-  for (int row = 0; row < p.m; ++row) {
-    const __nv_bfloat16* yr = p.y + (long long)row * d;
-    float s = 0.f;
-    for (int c = t; c < d; c += GEMV_THREADS) s += __bfloat162float(__ldcg(yr + c));
-    const float mean = __fdiv_rn(block_sum(s, sum_red), (float)d);
-    float q = 0.f;
-    for (int c = t; c < d; c += GEMV_THREADS) {
-      const float dv = __fsub_rn(__bfloat162float(__ldcg(yr + c)), mean);
-      q = __fadd_rn(q, __fmul_rn(dv, dv));
-    }
-    const float var = __fdiv_rn(block_sum(q, sum_red), (float)d);
-    if (t == 0) {
-      stats[row][0] = mean;
-      stats[row][1] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, p.eps)));
-    }
-  }
-  __syncthreads();
-  for (long long i = gtid; i < (long long)p.m * d; i += nthreads) {
-    const int row = static_cast<int>(i / d);
-    const int c = static_cast<int>(i % d);
-    const float un = __fmul_rn(__fsub_rn(__bfloat162float(__ldcg(p.y + i)), stats[row][0]),
-                               stats[row][1]);
-    p.u[i] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(un, p.ln_g[c]), p.ln_b[c]));
-  }
-  if (p.q4i == nullptr) return;  // the last layer: no in_proj
+  phase_layer_norm<MT>(p, sh);
+  if (p.qi == nullptr) return;  // the last layer: no in_proj
   grid.sync();
-
-  // F: the next layer's in_proj group terms on u
-  w4a8_terms<MT, true>(p.u, d, p.m, d / 2, p.q4i, p.s4i, p.ni, p.terms_i, codes[warp]);
+  phase_inproj_terms<MT, true>(p, sh);
   grid.sync();
-
-  // G: fused = bf16(sum of the terms in group order)
-  for (long long i = gtid; i < (long long)p.m * p.ni; i += nthreads) {
-    const long long row = i / p.ni;
-    const long long c = i % p.ni;
-    float acc = 0.f;
-    for (int g = 0; g < nko; ++g) {
-      acc = __fadd_rn(acc, __ldcg(p.terms_i + (g * p.m + row) * p.ni + c));
-    }
-    p.fused[i] = __float2bfloat16_rn(acc);
-  }
+  phase_inproj_sums<true>(p);
 }
 
 constexpr int MAX_DEVICES = 64;
@@ -281,7 +89,7 @@ cudaError_t resident_blocks(int dev, int* blocks) {
 }
 
 template <int MT>
-cudaError_t launch(Params p, cudaStream_t stream) {
+cudaError_t launch(Boundary p, cudaStream_t stream) {
   int dev = 0, resident = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = resident_blocks<MT>(dev, &resident);
@@ -316,7 +124,7 @@ extern "C" int magma_boundary(
     return (int)cudaErrorInvalidValue;
   }
   using bf = __nv_bfloat16;
-  Params p{};
+  Boundary p{};
   p.m = m;
   p.d = d;
   p.f = f;
@@ -326,8 +134,8 @@ extern "C" int magma_boundary(
   p.mh = static_cast<const bf*>(mh);
   p.x = static_cast<const bf*>(x);
   p.u_in = static_cast<const bf*>(u_in);
-  p.q4d = static_cast<const int8_t*>(q4d);
-  p.s4d = s4d;
+  p.qd = static_cast<const int8_t*>(q4d);
+  p.sd = s4d;
   p.b_fc_out = b_fc_out;
   p.ln_g = ln_g;
   p.ln_b = ln_b;
@@ -340,8 +148,8 @@ extern "C" int magma_boundary(
                             static_cast<const int8_t*>(m_wu), m_su, m_bu, dh_m, (flags & 8) ? 1 : 0,
                             static_cast<bf*>(h_m)}
                   : Adapter{};
-  p.q4i = has_in ? static_cast<const int8_t*>(q4i) : nullptr;
-  p.s4i = s4i;
+  p.qi = has_in ? static_cast<const int8_t*>(q4i) : nullptr;
+  p.si = s4i;
   p.y = static_cast<bf*>(y);
   p.u = static_cast<bf*>(u);
   p.fused = static_cast<bf*>(fused);

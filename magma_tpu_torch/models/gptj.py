@@ -19,14 +19,19 @@ on the card (``ops/quant.py``).  ``quantize_lm_params_int4`` builds the
 int4 layout (the same fusions over nibble-packed W4A8 payloads, the int8
 head kept): prefill runs ``_block`` with K3 and K4b, and a decode step of
 b <= 8 runs ``_run_decode_boundary``, one K6 launch per layer
-(``gptj.py:1046-1115``).
+(``gptj.py:1046-1115``).  A b=1 decode step over either quantized layout
+takes ``_run_decode_fused_layers`` ahead of both (``gptj.py:981-1043``):
+layer 0's LN and in_proj, then all layers in one K8 launch
+(``ops/decode_layer.py``), on the CPU its plain version.
 
 Numerics matched: fp32 layernorm statistics, tanh gelu, the tied head with
-fp32 output over ``wte`` whose vocab-padding rows are zero, a bf16 KV cache
-(L, b, max_len, h, hd) written once per forward after all layers.
-Training (remat), ring/sp attention, the int8 cache, the tensor-parallel
-and QLoRA int8 layouts and the whole-layer decode kernels (K7, K8) are not
-ported.
+fp32 output over ``wte`` whose vocab-padding rows are zero, a KV cache
+(L, b, max_len, h, hd) written once per forward after all layers: bf16, or
+with ``kv_cache_dtype="int8"`` int8 codes with one bf16 scale per (layer,
+row, head, position), stored position-minor (L, b, h, max_len).
+Training (remat), ring/sp attention, ``history_attention`` (the serving
+engine's chunked prefill) and the tensor-parallel and QLoRA int8 layouts
+are not ported.
 """
 
 from __future__ import annotations
@@ -63,6 +68,8 @@ class GPTJConfig:
     # prefill attention: "flash" (the CUDA kernel; its plain version on
     # CPU tensors) or "xla" (plain einsum + softmax)
     attention_impl: str = "flash"
+    # "bf16" or "int8" (per-(position, head) scales; halves the cache stream)
+    kv_cache_dtype: str = "bf16"
     mlp_adapter: Optional[AdapterSpec] = None
     attn_adapter: Optional[AdapterSpec] = None
 
@@ -134,12 +141,42 @@ def init_params(generator: torch.Generator, cfg: GPTJConfig, device=None) -> Dic
 
 
 def init_kv_cache(cfg: GPTJConfig, batch: int, max_len: int, device=None) -> Dict:
-    """Fixed-shape bf16 KV cache: {"k", "v"} each (L, b, max_len, h, hd)."""
+    """Fixed-shape KV cache: {"k", "v"} each (L, b, max_len, h, hd) in bf16,
+    or with ``cfg.kv_cache_dtype == "int8"`` int8 codes plus "k_scale" and
+    "v_scale", bf16 (L, b, h, max_len): position-minor, so a head's scales
+    for all positions are one contiguous row (see ``_quantize_kv``)."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sc_shape = (cfg.n_layers, batch, cfg.n_heads, max_len)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sc_shape, dtype=torch.bfloat16, device=device),
+            "v_scale": torch.zeros(sc_shape, dtype=torch.bfloat16, device=device),
+        }
+    if cfg.kv_cache_dtype != "bf16":
+        raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {cfg.kv_cache_dtype!r}")
     return {
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
     }
+
+
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()  # fp32(1/127)
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(layer, row, position, head) symmetric int8: x (L, b, s, h, hd)
+    -> (int8 codes of x's shape, bf16 scales (L, b, h, s)), with the bytes
+    of the JAX function under ``jit`` (``gptj.py:201-221``), where XLA turns
+    the division by 127 into a product with fp32(1/127) and keeps the true
+    division of x by the scale."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) * _INV_127
+    # a divisor of x's shape: a scalar divisor may be taken as a product
+    # with its reciprocal (PyTorch's CUDA division does), not IEEE division
+    q = torch.clamp(torch.round(xf / scale.expand_as(xf)), -127, 127).to(torch.int8)
+    return q, scale[..., 0].transpose(-1, -2).to(torch.bfloat16).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +227,8 @@ def _serving_cast_adapters(params: Dict, mode: str = "bf16") -> Dict:
 
 
 def _attach_bvecs(params: Dict) -> None:
-    """fp32 vector stacks of the fused decode kernels (K6; K7 and K8 in the
-    JAX package): row l of ln_g/ln_b is the LN that follows layer l
+    """fp32 vector stacks of the fused decode kernels (K6, K7 and K8): row
+    l of ln_g/ln_b is the LN that follows layer l
     (ln_1[l + 1], ln_f after the last)."""
     blocks = params["blocks"]
     bvecs = {
@@ -376,7 +413,8 @@ def _block(
     else:
         cache, layer = cache_kv
         attn = decode_attention(q, cache["k"][layer], cache["v"][layer], cache_index,
-                                scale=scale, self_kv=(kk, v))
+                                scale=scale, self_kv=(kk, v),
+                                kv_scales=_layer_scales(cache, layer))
     if cache_kv is not None:
         new_kv = (kk.to(cdt), v.to(cdt))
 
@@ -404,6 +442,24 @@ def _block(
     return x + a + m, new_kv
 
 
+def _adapters_fused(cfg: GPTJConfig, blocks: Dict) -> bool:
+    return all(spec is None or "fused" in blocks.get(name, {})
+               for name, spec in (("adapter_mlp", cfg.mlp_adapter),
+                                  ("adapter_attn", cfg.attn_adapter)))
+
+
+def _fused_adapter_kwargs(cfg: GPTJConfig, blocks: Dict) -> Dict:
+    """The fused adapter payloads as the boundary and whole-layer decodes
+    take them: ``fz_attn``/``fz_mlp`` (None where absent) and their sources
+    ``attn_src``/``mlp_src``, "out" for a "normal" adapter (fed by its
+    branch's output), "in" for the others (fed by the layer's LN output)."""
+    kw = {}
+    for tag, spec in (("attn", cfg.attn_adapter), ("mlp", cfg.mlp_adapter)):
+        kw[f"fz_{tag}"] = None if spec is None else blocks[f"adapter_{tag}"]["fused"]
+        kw[f"{tag}_src"] = "out" if spec is None or spec.adapter_type == "normal" else "in"
+    return kw
+
+
 def _boundary_ok(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor) -> bool:
     """Can this step take the boundary decode (``gptj.py:934-956``)?  A
     decode step (s == 1) of b <= 8 rows over the int4 layout with "bvecs",
@@ -414,9 +470,63 @@ def _boundary_ok(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor) -> bool:
         w = blocks["attn"].get(k)
         if not (isinstance(w, dict) and "q4" in w):
             return False
-    return all(spec is None or "fused" in blocks.get(name, {})
-               for name, spec in (("adapter_mlp", cfg.mlp_adapter),
-                                  ("adapter_attn", cfg.attn_adapter)))
+    return _adapters_fused(cfg, blocks)
+
+
+def _declayer_ok(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, cache: Dict) -> bool:
+    """Can this step take the whole-layer decode (``gptj.py:958-978``)?  A
+    b=1 s=1 step over either fused serving layout with "bvecs" and fused
+    adapters, at the kernel's geometry (``declayer_supported``).  Only the
+    JAX package's TPU test is dropped: the CPU takes the plain version."""
+    if x.shape[0] != 1 or x.shape[1] != 1:
+        return False
+    if "bvecs" not in blocks or not _adapters_fused(cfg, blocks):
+        return False
+    attn = blocks["attn"]
+    if "in_proj" not in attn or "out_proj" not in attn:
+        return False
+    from magma_tpu_torch.ops.decode_layer import declayer_supported
+
+    return declayer_supported(
+        b=1, s=1, n_heads=cfg.n_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+        max_len=cache["k"].shape[2], w_in_proj=attn["in_proj"], w_out_proj=attn["out_proj"],
+        has_bvecs=True)
+
+
+def _run_decode_fused_layers(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, positions,
+                             cache: Dict, cache_index):
+    """A b=1 s=1 decode step with all layers in one launch
+    (``gptj.py:981-1043``): layer 0's ln_1 and in_proj (K3 or K2b), then
+    ``decode_all_layers_fused`` (K8; its plain version on the CPU) for the
+    rotary, the cache attention, the gelu, the dual, the adapters, the
+    residual and the next LN and in_proj of every layer.  ``positions`` and
+    ``cache_index`` stay on the device.  Returns (x (1, 1, D), new keys,
+    new values (L, 1, 1, h, hd)); the caller writes the cache."""
+    from magma_tpu_torch.ops.decode_layer import decode_all_layers_fused
+
+    L, D = cfg.n_layers, cfg.d_model
+    h, hd = cfg.n_heads, cfg.head_dim
+    cdt = cfg.compute_dtype
+    scale = (1.0 / hd ** 0.5) if cfg.scale_attn else 1.0
+    attn_w, bv = blocks["attn"], blocks["bvecs"]
+    fc_in_b = blocks["mlp"]["fc_in"]["bias"].float()
+    dev = x.device
+    pos = torch.as_tensor(positions, device=dev).reshape(-1)[:1]
+    sincos = rotary_sincos(pos, cfg.rotary_dim)  # each (1, rotary_dim / 2)
+    idx = torch.as_tensor(cache_index, device=dev).reshape(-1)[:1].to(torch.int32)
+    kvs = (cache["k_scale"], cache["v_scale"]) if "k_scale" in cache else None
+    bf = torch.bfloat16
+    x2 = x.reshape(1, D)
+    u2 = _layer_norm(x2, {"scale": blocks["ln_1"]["scale"][0],
+                          "bias": blocks["ln_1"]["bias"][0]}, cfg.ln_eps, cdt)
+    fused = _mm(u2, {**attn_w["in_proj"], "idx": 0}, cdt)
+    y, k_new, v_new = decode_all_layers_fused(
+        fused.to(bf), x2.to(bf), u2.to(bf), sincos, cache["k"], cache["v"], kvs, idx,
+        attn_w["out_proj"], attn_w["in_proj"], fc_in_b, bv["b_fc_out"], bv["ln_g"],
+        bv["ln_b"], n_heads=h, o_bias=bv.get("o_bias"), scale=scale, ln_eps=cfg.ln_eps,
+        **_fused_adapter_kwargs(cfg, blocks))
+    return (y.reshape(1, 1, D).to(cdt), k_new.reshape(L, 1, 1, h, hd).to(cdt),
+            v_new.reshape(L, 1, 1, h, hd).to(cdt))
 
 
 def _run_decode_boundary(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, sin, cos,
@@ -425,8 +535,8 @@ def _run_decode_boundary(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, sin, co
     0's ln_1 and in_proj (K3), then per layer the rotary, the cache
     attention and the gelu in torch and one ``boundary_fused_stacked`` (K6)
     for the dual, the adapters, the residual, the next LN and the next
-    in_proj.  Returns (x, new keys, new values), the caller writes the
-    cache."""
+    in_proj.  Returns (x, new keys, new values (L, b, 1, h, hd)), the
+    caller writes the cache."""
     from magma_tpu_torch.ops.quant import boundary_fused_stacked, int4_matmul_stacked
 
     L, D = cfg.n_layers, cfg.d_model
@@ -436,14 +546,7 @@ def _run_decode_boundary(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, sin, co
     scale = (1.0 / hd ** 0.5) if cfg.scale_attn else 1.0
     attn_w, bv = blocks["attn"], blocks["bvecs"]
     fc_in_b = blocks["mlp"]["fc_in"]["bias"]
-
-    def adapter_of(name, spec):
-        if spec is None:
-            return None, "out"
-        return blocks[name]["fused"], "out" if spec.adapter_type == "normal" else "in"
-
-    fz_mlp, mlp_src = adapter_of("adapter_mlp", cfg.mlp_adapter)
-    fz_attn, attn_src = adapter_of("adapter_attn", cfg.attn_adapter)
+    adapters = _fused_adapter_kwargs(cfg, blocks)
     x2 = x.reshape(b, D)
     u2 = _layer_norm(x2, {"scale": blocks["ln_1"]["scale"][0],
                           "bias": blocks["ln_1"]["bias"][0]}, cfg.ln_eps, cdt)
@@ -457,33 +560,49 @@ def _run_decode_boundary(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, sin, co
         k_news.append(kk.to(cdt))
         v_news.append(v.to(cdt))
         ctx2 = decode_attention(q, cache["k"][l], cache["v"][l], cache_index, scale=scale,
-                                self_kv=(kk, v)).reshape(b, D)
+                                self_kv=(kk, v), kv_scales=_layer_scales(cache, l)).reshape(b, D)
         mh2 = F.gelu(fused[:, 3 * D:] + fc_in_b[l].to(cdt), approximate="tanh")
         outs = boundary_fused_stacked(
             ctx2, mh2, x2, attn_w["out_proj"], bv["b_fc_out"], bv["ln_g"], bv["ln_b"], l,
-            w_in=None if l == L - 1 else attn_w["in_proj"], fz_attn=fz_attn,
-            attn_src=attn_src, fz_mlp=fz_mlp, mlp_src=mlp_src, u_in=u2,
-            o_bias=bv.get("o_bias"), ln_eps=cfg.ln_eps)
+            w_in=None if l == L - 1 else attn_w["in_proj"], u_in=u2, o_bias=bv.get("o_bias"),
+            ln_eps=cfg.ln_eps, **adapters)
         if l == L - 1:
             x2, u2 = outs  # u2 is ln_f(x2); forward applies ln_f itself
         else:
             x2, u2, fused = outs
-    return x2.reshape(b, 1, D).to(cdt), k_news, v_news
+    return x2.reshape(b, 1, D).to(cdt), torch.stack(k_news), torch.stack(v_news)
 
 
 def _write_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
                  cache_index) -> Dict:
     """Write all layers' new K/V, (L, b, s, h, hd), into the cache at
-    ``cache_index`` (an int, a scalar tensor, or per-row (b,)).  Updates
-    the cache in place (the JAX package returns a new one) and returns it."""
+    ``cache_index`` (an int, a scalar tensor, or per-row (b,)).  An int8
+    cache quantizes the entries here, its only write point, and writes the
+    scales on their position axis 3.  Updates the cache in place (the JAX
+    package returns a new one) and returns it."""
     b, s = k_new.shape[1:3]
     dev = cache["k"].device
     start = torch.as_tensor(cache_index, device=dev).to(torch.long).reshape(-1, 1)
     pos = (start + torch.arange(s, device=dev)).expand(b, s)
     rows = torch.arange(b, device=dev)[:, None].expand(b, s)
+    if "k_scale" in cache:
+        for name, new in (("k", k_new), ("v", v_new)):
+            q, sc = _quantize_kv(new)
+            cache[name][:, rows, pos] = q
+            # a position-major view of the (L, b, h, max_len) scales
+            cache[f"{name}_scale"].transpose(-1, -2)[:, rows, pos] = sc.transpose(-1, -2)
+        return cache
     cache["k"][:, rows, pos] = k_new.to(cache["k"].dtype)
     cache["v"][:, rows, pos] = v_new.to(cache["v"].dtype)
     return cache
+
+
+def _layer_scales(cache: Dict, layer: int):
+    """The layer's (k_scale, v_scale), each (b, h, max_len), of an int8
+    cache; None for a bf16 one."""
+    if "k_scale" not in cache:
+        return None
+    return cache["k_scale"][layer], cache["v_scale"][layer]
 
 
 def forward(
@@ -510,7 +629,10 @@ def forward(
     sin, cos = rotary_sincos(positions, cfg.rotary_dim)
 
     blocks = params["blocks"]
-    if cache is not None and _boundary_ok(cfg, blocks, x):
+    if cache is not None and _declayer_ok(cfg, blocks, x, cache):
+        x, k_news, v_news = _run_decode_fused_layers(cfg, blocks, x, positions, cache,
+                                                     cache_index)
+    elif cache is not None and _boundary_ok(cfg, blocks, x):
         x, k_news, v_news = _run_decode_boundary(cfg, blocks, x, sin, cos, cache, cache_index)
     else:
         k_news, v_news = [], []
@@ -520,8 +642,10 @@ def forward(
             if new_kv is not None:
                 k_news.append(new_kv[0])
                 v_news.append(new_kv[1])
+        if cache is not None:
+            k_news, v_news = torch.stack(k_news), torch.stack(v_news)
     if cache is not None:
-        cache = _write_cache(cache, torch.stack(k_news), torch.stack(v_news), cache_index)
+        cache = _write_cache(cache, k_news, v_news, cache_index)
 
     x = _layer_norm(x, params["ln_f"], cfg.ln_eps, cdt)
     if return_hidden:

@@ -10,7 +10,10 @@ Port of ``magma_tpu/ops/attention.py``.  Two prefill implementations:
   package (``attention.py:94-95``) nothing falls back to the einsum path.
 
 All ops take and return (b, s, h, hd); softmax statistics are fp32 whatever
-the input dtype.  The int8 cache and ``history_attention`` are not ported.
+the input dtype.  ``decode_attention`` reads a bf16 or an int8 cache (its
+scales folded into the scores and the weights, as in the JAX package).
+``history_attention``, reached only by the serving engine's chunked
+prefill, is not ported.
 """
 
 from __future__ import annotations
@@ -96,16 +99,23 @@ def decode_attention(
     *,
     scale: float,
     self_kv=None,
+    kv_scales=None,
 ) -> torch.Tensor:
-    """Single-token attention against a fixed-shape bf16 KV cache.
+    """Single-token attention against a fixed-shape KV cache.
 
     q: (b, 1, h, hd); k_cache/v_cache: (b, max_len, h, hd); cur_len: (b,)
     or scalar count of valid cache entries.  ``self_kv=(k_new, v_new)``
     adds the current token's K/V as an extra key, so the cache write can
-    wait for one bulk update after all layers (gptj._write_cache)."""
+    wait for one bulk update after all layers (gptj._write_cache).
+    ``kv_scales=(k_scale, v_scale)``, each (b, h, max_len), marks an int8
+    cache: the scores are multiplied by k_scale, and the cache part of the
+    weights, rounded to q's dtype, by v_scale (``attention.py:171-240``)."""
     b = q.shape[0]
     max_len = k_cache.shape[1]
     scores = _scores_f32(q, k_cache, scale)
+    if kv_scales is not None:
+        k_sc, v_sc = kv_scales
+        scores = scores * k_sc[:, :, None, :].float()
     cur_len = torch.as_tensor(cur_len, device=q.device).reshape(-1).expand(b)
     valid = (torch.arange(max_len, device=q.device)[None, :]
              < cur_len[:, None])[:, None, None, :]
@@ -113,12 +123,16 @@ def decode_attention(
     if self_kv is not None:
         k_self, v_self = self_kv
         scores = torch.cat([scores, _scores_f32(q, k_self, scale)], -1)
-    # weights round to the cache dtype, as in the JAX package; each product
-    # then accumulates in fp32 and rounds once to that dtype
-    wdt = v_cache.dtype
-    weights = torch.softmax(scores, dim=-1).to(wdt).float()
-    out = torch.einsum("bhqk,bkhd->bqhd", weights[..., :max_len],
-                       v_cache.float()).to(wdt)
+    # weights round to the cache dtype (q's over an int8 cache), as in the
+    # JAX package; each product then accumulates in fp32 and rounds once to
+    # that dtype
+    wdt = q.dtype if kv_scales is not None else v_cache.dtype
+    weights = torch.softmax(scores, dim=-1).to(wdt)
+    w_cache = weights[..., :max_len]
+    if kv_scales is not None:
+        w_cache = w_cache * v_sc[:, :, None, :].to(wdt)
+    weights = weights.float()
+    out = torch.einsum("bhqk,bkhd->bqhd", w_cache.float(), v_cache.float()).to(wdt)
     if self_kv is not None:
         out = out + torch.einsum("bhqk,bkhd->bqhd", weights[..., max_len:],
                                  v_self.to(wdt).float()).to(wdt)

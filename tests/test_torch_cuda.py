@@ -497,3 +497,189 @@ def test_tiny_int4_lm_on_the_gpu_matches_its_cpu_run(dev):
     got = [k.launches - b for k, b in zip(kernels, before)]
     L = cfg.n_layers
     assert got == [steps, L + steps - 1, L, L * (steps - 1), L]
+
+
+# ---------------------------------------------------------------------------
+# whole decode layers: K7 and K8 (csrc/decode_layer.cu)
+# ---------------------------------------------------------------------------
+
+# K7's y, u and fused against the plain version: the boundary phases are
+# K6's, so K6's tolerance (the adapters' int8 sums and the LN statistics in
+# another order; here also the attention's chunked online softmax and the
+# gelu against PyTorch's): each within 2^-6 of its largest magnitude, >= 90%
+# of elements equal.  K8 chains the layers, so a flip of one layer carries
+# into the next: 2^-5 of the largest |y| after three layers, >= 50% equal.
+K7_REL_TOL, K7_MIN_EQUAL = 2.0 ** -6, 0.9
+K8_REL_TOL, K8_MIN_EQUAL = 2.0 ** -5, 0.5
+
+
+def _declayer_payloads(dev, fmt, kv, recipe, L=3, D=2048, F=2048, max_len=64, seed=20):
+    """Stacks at a small head_dim-256 geometry (8 heads, D = F = 2048, NI =
+    8192), a filled cache and the layer inputs, all from seeds on the card."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def stack(k, n):
+        if fmt == "int4":
+            packs = [quant.quantize_int4(randn(k, n, std=0.02)) for _ in range(L)]
+            return {"q4": torch.stack([p["q4"] for p in packs]),
+                    "s4": torch.stack([p["s4"] for p in packs])}
+        packs = [quant.quantize_int8(randn(k, n, std=0.02)) for _ in range(L)]
+        return {"q": torch.stack([p["q"] for p in packs]), "s": torch.stack([p["s"] for p in packs])}
+
+    o, f = stack(D, D), stack(F, D)
+    if fmt == "int4":
+        dual = {"q4": torch.cat([o["q4"], f["q4"]], 1), "s4": torch.cat([o["s4"], f["s4"]], 1)}
+    else:
+        dual = {"q": torch.cat([o["q"], f["q"]], 1), "s": torch.stack([o["s"], f["s"]], 1)}
+    w_in = stack(D, 3 * D + F)
+
+    def adapter():
+        return quant.quantize_adapter_fused(randn(L, D, 512, std=0.05), randn(L, 512, std=0.02),
+                                            randn(L, 512, D, std=0.05), randn(L, D, std=0.02),
+                                            out_scale=1 + randn(L, std=0.5))
+
+    kw = dict(n_heads=D // 256, scale=1 / 16, fz_mlp=adapter(), mlp_src="out")
+    if recipe == "scaled":
+        kw.update(fz_attn=adapter(), attn_src="in", o_bias=randn(L, D, std=0.02))
+    shape = (L, 1, max_len, D // 256, 256)
+    kc, vc = randn(*shape).to(torch.bfloat16), randn(*shape).to(torch.bfloat16)
+    kvs = None
+    if kv == "int8":
+        (kc, ks), (vc, vs) = gptj._quantize_kv(kc), gptj._quantize_kv(vc)
+        kvs = (ks, vs)
+    from magma_tpu_torch.ops.rotary import rotary_sincos
+
+    ins = dict(fused=randn(1, 3 * D + F).to(torch.bfloat16),
+               x=randn(1, D, std=0.3).to(torch.bfloat16), u=randn(1, D).to(torch.bfloat16))
+    vecs = (randn(L, F, std=0.1), randn(L, D, std=0.02), 1 + randn(L, D, std=0.1),
+            randn(L, D, std=0.02))
+    sincos = rotary_sincos(torch.tensor([37], device=dev), 64)
+    return dual, w_in, vecs, (kc, vc, kvs), sincos, ins, kw
+
+
+def _check_k7_like(got, ref, names, rel, min_equal):
+    for gt, rf, name in zip(got, ref, names):
+        assert gt.dtype == torch.bfloat16 and gt.shape == rf.shape, name
+        diff = (gt.float() - rf.float()).abs()
+        if name == "v_new":
+            assert torch.equal(gt, rf), name
+        elif name == "k_new":  # the fp32 rotary in the plain version's order
+            assert torch.all(diff <= 2.0 ** -7 * rf.float().abs()), name
+        else:
+            assert diff.max() <= rel * rf.float().abs().max(), name
+            assert (diff == 0).float().mean() >= min_equal, name
+
+
+@pytest.mark.parametrize("layer", [1, 2], ids=["with_w_in", "last_layer"])
+@pytest.mark.parametrize("recipe", ["v1", "scaled"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("fmt", ["int4", "int8"])
+def test_decode_layer_kernel_matches_plain(fmt, kv, recipe, layer, dev):
+    from magma_tpu_torch.ops import decode_layer as dl
+
+    dual, w_in, (bfi, bfo, ln_g, ln_b), (kc, vc, kvs), sincos, ins, kw = \
+        _declayer_payloads(dev, fmt, kv, recipe)
+    with_in = layer == 1
+    args = (ins["fused"], ins["x"], sincos, kc, vc, kvs, 37, dual, bfi, bfo, ln_g, ln_b, layer)
+    kw = dict(kw, w_in=w_in if with_in else None, u_in=ins["u"])
+    before = dl.decode_layer_kernel.launches
+    got = dl.decode_layer_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert dl.decode_layer_kernel.launches == before + 1
+    ref = dl.decode_layer_plain(*args, **kw)
+    names = ("y", "u", "fused", "k_new", "v_new") if with_in else ("y", "u", "k_new", "v_new")
+    assert len(got) == len(ref) == len(names)
+    _check_k7_like(got, ref, names, K7_REL_TOL, K7_MIN_EQUAL)
+    again = dl.decode_layer_fused(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no float atomics
+
+
+@pytest.mark.parametrize("pos", [37, 0])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("fmt", ["int4", "int8"])
+def test_decode_all_layers_kernel_matches_plain(fmt, kv, pos, dev):
+    from magma_tpu_torch.ops import decode_layer as dl
+    from magma_tpu_torch.ops.rotary import rotary_sincos
+
+    dual, w_in, (bfi, bfo, ln_g, ln_b), (kc, vc, kvs), _, ins, kw = \
+        _declayer_payloads(dev, fmt, kv, "scaled")
+    sincos = rotary_sincos(torch.tensor([pos], device=dev), 64)
+    args = (ins["fused"], ins["x"], ins["u"], sincos, kc, vc, kvs,
+            torch.tensor([pos], dtype=torch.int32, device=dev), dual, w_in, bfi, bfo, ln_g, ln_b)
+    before = dl.decode_all_layers_kernel.launches
+    got = dl.decode_all_layers_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert dl.decode_all_layers_kernel.launches == before + 1
+    ref = dl.decode_all_layers_plain(*args, **kw)
+    assert got[1].shape == (3, 1, 2048)
+    _check_k7_like(got[:1], ref[:1], ("y",), K8_REL_TOL, K8_MIN_EQUAL)
+    # layer 0's rows come before any chained difference
+    _check_k7_like((got[1][0], got[2][0]), (ref[1][0], ref[2][0]), ("k_new", "v_new"), 0, 1)
+
+
+@pytest.mark.parametrize("bad", ["batch_2", "head_dim_128", "max_len_200", "cpu_cache",
+                                 "fp32_fused", "last_layer_w_in", "int64_pos"])
+def test_decode_layer_wrappers_raise_on_what_they_do_not_take(bad, dev):
+    from magma_tpu_torch.ops import decode_layer as dl
+
+    dual, w_in, (bfi, bfo, ln_g, ln_b), (kc, vc, kvs), sincos, ins, kw = \
+        _declayer_payloads(dev, "int4", "bf16", "v1")
+    fused, x, layer, pos = ins["fused"], ins["x"], 0, torch.tensor([5], dtype=torch.int32,
+                                                                   device=dev)
+    if bad == "batch_2":
+        kc, vc = kc.expand(-1, 2, -1, -1, -1).contiguous(), vc.expand(-1, 2, -1, -1, -1).contiguous()
+    elif bad == "head_dim_128":
+        kc, vc = (t.reshape(3, 1, 64, 16, 128) for t in (kc, vc))
+        kw = dict(kw, n_heads=16)
+    elif bad == "max_len_200":
+        kc = torch.zeros((3, 1, 200, 8, 256), dtype=torch.bfloat16, device=dev)
+        vc = kc.clone()
+    elif bad == "cpu_cache":
+        kc = kc.cpu()
+    elif bad == "fp32_fused":
+        fused = fused.float()
+    elif bad == "last_layer_w_in":
+        layer = 2
+    else:
+        pos = pos.long()
+    fn = dl.decode_layer_kernel
+    before = fn.launches
+    with pytest.raises((TypeError, ValueError)):
+        fn(fused, x, sincos, kc, vc, kvs, pos, dual, bfi, bfo, ln_g, ln_b, layer, w_in=w_in,
+           **kw)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("fmt", ["int4", "int8"])
+def test_gated_lm_decode_runs_through_k8(fmt, dev):
+    """A GPT-J at the kernels' geometry (8 heads of 256, 2 layers) on the
+    GPU: every decode step of a b=1 request is one K8 launch plus layer 0's
+    in_proj, no K5, K6 or K7."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.models.adapters import AdapterSpec
+    from magma_tpu_torch.ops import decode_layer as dl
+    from magma_tpu_torch.ops import quant
+    from magma_tpu_torch.ops.sampling import generate_tokens
+
+    cfg = gptj.GPTJConfig.tiny(n_layers=2, n_heads=8, d_model=2048, d_ff=2048, rotary_dim=64,
+                               attention_impl="flash", param_dtype=torch.bfloat16,
+                               mlp_adapter=AdapterSpec("normal", 4))
+    params = gptj.init_params(torch.Generator().manual_seed(0), cfg)
+    quantize = gptj.quantize_lm_params_int4 if fmt == "int4" else gptj.quantize_lm_params
+    params = _to(quantize(params), dev)
+    emb = torch.randn((1, 40, 2048), generator=torch.Generator().manual_seed(2)).to(dev)
+    inproj = quant.int4_matmul_stacked_kernel if fmt == "int4" else quant.int8_matmul_stacked_kernel
+    kernels = (dl.decode_all_layers_kernel, dl.decode_layer_kernel, quant.boundary_kernel,
+               quant.fused_adapter_kernel, inproj)
+    before = [k.launches for k in kernels]
+    tokens, steps = generate_tokens(cfg, params, emb, None, max_steps=6, temperature=0.0)
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    L = cfg.n_layers
+    # the prefill's 40 rows take K5 once a layer; decode never does
+    assert got == [steps - 1, 0, 0, L, L + steps - 1]
