@@ -72,6 +72,30 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    ``kv_cache_dtype="int8"`` answers the same three requests with exact
    launches; its greedy prefill logits equal phase 6's bit for bit (the
    prefill reads fresh keys, never the cache).
+2e. The training kernels against their plain versions: K9a/K9b (the flash
+   backward) at (b 2, s 2048, h 16, hd 256, causal) and at a padded
+   kv_len case of hd 128, each gradient within 2e-2 of its largest
+   magnitude; K10 (the int8 input gradient) at M = 2048 on the in_proj,
+   o, fc_out and head shapes, within the fp32 summation bound.  Each timed
+   with its plain version, its bound and one library call (the backward of
+   ``scaled_dot_product_attention(is_causal=True)``; a bf16 matmul of g s
+   against weights dequantised before timing).
+8. Path A, bf16 adapter training: ``Magma`` from configs/MAGMA_v1.yml as
+   it stands (trainable RN50x16, dropout 0.1, flash, remat, seq 2048) with
+   warmup_num_steps 1 and a global batch of ga 2 x micro 2, its
+   ``Trainer`` taking 3 steps on seeded batches: exact launches a step
+   (K1 2L, K9a L, K9b L a micro-step), finite losses, the frozen LM
+   bit-unchanged (checksums), every trainable group moved, step ms,
+   tokens/s and peak memory; one micro-batch's loss and gradients through
+   the kernels against the plain path (einsum attention and autograd) per
+   parameter group; one step profiled (device busy, kernels, idle share);
+   the optimizer's update of one more step timed alone (wall, the card
+   synchronised around it).
+9. Path B, QLoRA: the same with ``train_lm_int8`` (frozen int8 LM, bf16
+   adapters, encoder frozen), ga 2 x micro 1: K2b 6L, K2a 16 and K10
+   3L + 8 a micro-step beside K1/K9 (the plain path also swaps K2a, K2b and
+   K10 for their plain versions), then the overfit gate: 10 steps on one
+   fixed batch, the 10th loss below the 1st by OVERFIT_MARGIN.
 
 The last two lines are one JSON object of the kernels' numbers and one
 JSON object saying the run is ok and on which device.
@@ -168,6 +192,32 @@ K7_REL_TOL, K7_MIN_EQUAL = K6_REL_TOL, K6_MIN_EQUAL
 K8_REL_TOL = 2.0 ** -3
 # decode-path agreement: JAX's bounds (tests/test_decode_layer.py:92-107)
 PATH_REL_TOL = 3e-2
+TRAIN_KERNELS = {  # wrapper name -> (JSON name, TPU kernel it replaces, source)
+    "flash_attention_bwd_dkv_kernel": ("flash_attn_bwd_dkv", "magma_tpu/ops/flash_attention.py:199",
+                                       "magma_tpu_torch/csrc/flash_attn_bwd.cu"),
+    "flash_attention_bwd_dq_kernel": ("flash_attn_bwd_dq", "magma_tpu/ops/flash_attention.py:274",
+                                      "magma_tpu_torch/csrc/flash_attn_bwd.cu"),
+    "int8_matmul_dx_kernel": ("int8_matmul_dx", "magma_tpu/ops/quant.py:201",
+                              "magma_tpu_torch/csrc/int8_matmul_dx.cu"),
+}
+# K9a/K9b against the fp32 plain backward on the same bf16 inputs: the
+# kernels round P and dS to bf16 for the tensor cores (2^-9 relative each)
+# and their outputs to bf16; each gradient within 2e-2 of its own largest
+# magnitude (about 5x the 2^-8 a sum of such roundings reaches)
+K9_REL_TOL = 2e-2
+# one micro-batch through the kernels vs the plain path (einsum attention;
+# path B also the plain int8 products): both round attention to bf16 at
+# different points, 2^-8 relative a layer, compounded over 28 layers forward
+# and backward (phase 4's prefill logits of the two paths differ by 0.074
+# at std 1.3); held per parameter group as |g - g_plain|_2 / |g_plain|_2, and
+# the loss relative
+TRAIN_GRAD_TOL = 0.1
+TRAIN_LOSS_TOL = 1e-2
+# path B on one fixed batch: the loss of step 10 below step 1's by at least
+# this much (step 1 runs at the warmup's lr 0; 8 updates at lr 8e-4 reach
+# the 10th loss; JAX's tiny-model gate asks 0.1 over 5 steps)
+OVERFIT_MARGIN = 0.1
+TRAIN_STEPS = 3
 
 
 def fail(msg: str) -> int:
@@ -1275,12 +1325,14 @@ def _dequantised_lm(torch, lm, cfg):
 
 def _all_wrappers():
     """Every kernel wrapper by name, K1 included."""
-    from magma_tpu_torch.ops import decode_layer, quant
-    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+    from magma_tpu_torch.ops import decode_layer, flash_attention, quant
 
     wrappers = {name: getattr(quant, name) for name in (*INT8_KERNELS, *INT4_KERNELS)}
     wrappers.update({name: getattr(decode_layer, name) for name in DECODE_KERNELS})
-    wrappers["flash_attention_kernel"] = flash_attention_kernel
+    wrappers["flash_attention_kernel"] = flash_attention.flash_attention_kernel
+    for name in TRAIN_KERNELS:
+        wrappers[name] = getattr(quant if name == "int8_matmul_dx_kernel" else flash_attention,
+                                 name)
     return wrappers
 
 
@@ -1594,6 +1646,378 @@ def phase_int4_kv8(torch, model, emb, tokens6):
     return launches
 
 
+def phase_train_kernels(torch):
+    """K9a, K9b and K10 against their plain versions at the training
+    shapes.  Returns their JSON entries by wrapper name (launches unset)."""
+    import torch.nn.functional as F
+
+    from magma_tpu_torch.ops import quant
+    from magma_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_dkv_kernel,
+                                                     flash_attention_bwd_dq_kernel,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    entries = {w: {"max_abs_err": 0.0} for w in TRAIN_KERNELS}
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    # K9a/K9b: path A's layer shape, causal; then right-padded rows at hd 128
+    for label, (b, s, h, hd, kv) in (("path A b=2 s=2048 h=16 hd=256", (2, 2048, 16, 256, None)),
+                                     ("padded hd=128 kv_len=[1900, 733]",
+                                      (2, 2048, 8, 128, [1900, 733]))):
+        q, k, v, do = (bf16(b, s, h, hd) for _ in range(4))
+        kvl = None if kv is None else torch.tensor(kv, dtype=torch.int32, device=dev)
+        kw = dict(scale=hd ** -0.5, causal=True, kv_len=kvl, q_offset=0)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        lse = lse.contiguous()
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            check(torch.isfinite(a.float()).all().item(), f"K9 {label}: non-finite {name}")
+            errs[name] = ((a.float() - r).abs().max() / r.abs().max()).item()
+        print(f"[K9] {label}: max|kernel - plain| / max|plain|: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol {K9_REL_TOL})")
+        check(all(e <= K9_REL_TOL for e in errs.values()), f"K9 {label}: {errs}")
+        entries["flash_attention_bwd_dkv_kernel"]["max_abs_err"] = max(
+            entries["flash_attention_bwd_dkv_kernel"]["max_abs_err"],
+            max((a.float() - r).abs().max().item() for a, r in zip(got[1:], ref[1:])))
+        entries["flash_attention_bwd_dq_kernel"]["max_abs_err"] = max(
+            entries["flash_attention_bwd_dq_kernel"]["max_abs_err"],
+            (got[0].float() - ref[0]).abs().max().item())
+        if kv is not None:
+            continue
+        # timing at path A's shape: each kernel with its wrapper, the plain
+        # backward (both gradients' function) and the library's backward of
+        # scaled_dot_product_attention(is_causal=True), its forward outside
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        kargs = (q, k, v, do, lse, di, None)
+        kkw = dict(scale=hd ** -0.5, causal=True, q_offset=0)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=hd ** -0.5)
+        dot = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_o, (qt, kt, vt), dot, retain_graph=True)
+
+        # this run's work per (batch, head): s (s + 1) / 2 attended pairs,
+        # 2 hd flops a product; K9a's function is 4 products (S, dP, dV,
+        # dK), K9b's 3 (S, dP, dQ); bytes: every input once, outputs once
+        pairs = b * h * s * (s + 1) // 2
+        in_bytes = nbytes(q, k, v, do, lse, di)
+        plain = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)  # noqa: E731
+        entries["flash_attention_bwd_dkv_kernel"].update(_timing(
+            torch, "K9a dK,dV", b * s, lambda: flash_attention_bwd_dkv_kernel(*kargs, **kkw),
+            plain, library, in_bytes + 2 * nbytes(k), 4 * 2 * hd * pairs, "flash_bwd_dkv_kernel",
+            library_is="backward of scaled_dot_product_attention(is_causal=True), all of dq, "
+                       "dk, dv"))
+        entries["flash_attention_bwd_dq_kernel"].update(_timing(
+            torch, "K9b dQ", b * s, lambda: flash_attention_bwd_dq_kernel(*kargs, **kkw),
+            plain, library, in_bytes + nbytes(q), 3 * 2 * hd * pairs, "flash_bwd_dq_kernel",
+            library_is="backward of scaled_dot_product_attention(is_causal=True), all of dq, "
+                       "dk, dv"))
+        del lib_o, qt, kt, vt
+    del q, k, v, do, o, lse
+
+    # K10: path B's M = b s = 2048 on every int8 product of a layer and the head
+    D, F_, V, M = 4096, 16384, 50304, 2048
+    for label, (k_, n_) in (("in_proj", (D, 3 * D + F_)), ("o", (D, D)), ("fc_out", (F_, D)),
+                            ("head", (D, V))):
+        wq = torch.randint(-127, 128, (k_, n_), generator=g, device=dev, dtype=torch.int8)
+        sc = torch.rand((n_,), generator=g, device=dev) * 2e-4 + 1e-5
+        grad = torch.randn((M, n_), generator=g, device=dev) * 1e-3
+        dx = quant.int8_matmul_dx_kernel(grad, wq, sc)
+        ref = quant.int8_matmul_dx_plain(grad, wq, sc)
+        gs = (grad * sc).to(torch.bfloat16).float()
+        tol = 2 * n_ * 2.0 ** -24 * (gs.abs() @ wq.float().abs().T)
+        torch.cuda.synchronize()
+        err = (dx - ref).abs()
+        ok = bool((err <= tol).all())
+        del gs, tol
+        w_lib = (wq.float() * sc).to(torch.bfloat16).T.contiguous()  # dequantised before timing
+        g16 = grad.to(torch.bfloat16)
+        tm = _timing(torch, f"K10 {label}", M, lambda: quant.int8_matmul_dx_kernel(grad, wq, sc),
+                     lambda: quant.int8_matmul_dx_plain(grad, wq, sc),
+                     lambda: torch.matmul(g16, w_lib),
+                     nbytes(grad, wq, sc) + M * k_ * 4, 2 * M * n_ * k_, "int8_dx_kernel",
+                     library_is="bf16 torch.matmul of g against W s dequantised before timing",
+                     plain_iters=5)
+        print(f"[K10 {label}] M={M} K={k_} N={n_}: max|kernel-plain| {err.max().item():.3e}, "
+              f"within the fp32 summation bound: {ok}")
+        check(ok, f"K10 {label}: kernel differs from its plain version by {err.max().item()}")
+        e = entries["int8_matmul_dx_kernel"]
+        e["max_abs_err"] = max(e["max_abs_err"], err.max().item())
+        if label == "in_proj":  # the JSON line carries the largest product's numbers
+            e.update(tm)
+        del wq, sc, grad, dx, ref, w_lib, g16
+    for wrapper, (name, replaces, source) in TRAIN_KERNELS.items():
+        entries[wrapper].update(name=name, route="cuda", replaces=replaces, source=source)
+    return entries
+
+
+def _train_config(path):
+    """Path A: configs/MAGMA_v1.yml as it stands, ga 2 x micro 2.  Path B:
+    the QLoRA recipe (bench.py stage 6): train_lm_int8, encoder frozen, ga
+    2 x micro 1.  Both at seq 2048 with warmup_num_steps 1."""
+    from magma_tpu_torch.config import MultimodalConfig
+
+    cfg = MultimodalConfig.from_yml(CONFIG)
+    cfg.warmup_num_steps = 1
+    cfg.gradient_accumulation_steps = 2
+    if path == "A":
+        cfg.batch_size = 4
+    else:
+        cfg.batch_size = 2
+        cfg.train_lm_int8 = True
+        cfg.freeze_img_encoder = True
+        cfg.lr_decay_iters = None  # bench.py's recipe: WarmupLR at lr 8e-4
+    return cfg
+
+
+def _train_batch(torch, cfg, seq, seed):
+    """A seeded global batch on the card: images as CLIP's preprocessing
+    leaves them (about zero mean), captions of 1024 random tokens then EOS
+    padding, as bench.py's recipe step."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = cfg.batch_size
+    images = torch.randn((b, 3, cfg.image_size, cfg.image_size), generator=g, device=dev)
+    caps = torch.full((b, seq), 50256, dtype=torch.long, device=dev)
+    caps[:, :seq // 2] = torch.randint(0, 50000, (b, seq // 2), generator=g, device=dev)
+    return images, caps
+
+
+def _checksums(torch, tensors):
+    """An exact fingerprint of each tensor: the sum of its bits read as
+    int32 (or bytes), accumulated in int64."""
+    out = []
+    for t in tensors:
+        t = t.detach().contiguous()
+        view = t.view(torch.int32) if t.numel() * t.element_size() % 4 == 0 else t.view(torch.uint8)
+        out.append(int(view.sum(dtype=torch.int64)))
+    return out
+
+
+def _want_train_launches(path, L, n_chunks, ga):
+    """Exact launches of one optimizer step of ga micro-steps (a forward and
+    a backward each, remat on): K1 once a layer forward and once in its
+    recompute, K9a and K9b once a layer; path B also K2b for in_proj, o and
+    fc_out forward and recompute, K2a for each head chunk forward and
+    recompute, K10 for each of those products once."""
+    want = {"flash_attention_kernel": 2 * L, "flash_attention_bwd_dkv_kernel": L,
+            "flash_attention_bwd_dq_kernel": L}
+    if path == "B":
+        want.update(int8_matmul_stacked_kernel=6 * L, int8_matmul_kernel=2 * n_chunks,
+                    int8_matmul_dx_kernel=3 * L + n_chunks)
+    return {k: ga * want.get(k, 0) for k in _all_wrappers()}
+
+
+def _group_grads(torch, trainer, images, captions, gen_seed):
+    """(loss, {group: flat fp32 gradient}) of one micro-batch of the trainer's
+    params, train=True, dropout bits from a fixed seed."""
+    from magma_tpu_torch.training.optim import label_params
+    from magma_tpu_torch.utils import tree_items
+
+    gen = torch.Generator(device=images.device).manual_seed(gen_seed)
+    named = trainer.trainable
+    loss, _ = trainer.model.loss_fn(trainer.params, trainer.state, images, captions, train=True,
+                                    generator=gen)
+    grads = torch.autograd.grad(loss, [t for _, t in named])
+    labels = dict(tree_items(label_params(trainer.params)))
+    groups = {}
+    for (path, _), gr in zip(named, grads):
+        groups.setdefault(labels[path], []).append(gr.float().reshape(-1))
+    return loss.item(), {k: torch.cat(v) for k, v in groups.items()}
+
+
+class _PlainInt8:
+    """Within the block, the int8 products' wrappers run their plain
+    versions on the card: K2a, K2b and K10 swapped for the same functions in
+    fp32 torch (the plain path of path B)."""
+
+    def __enter__(self):
+        from magma_tpu_torch.ops import quant
+
+        self.quant = quant
+        self.saved = {n: getattr(quant, n) for n in
+                      ("int8_matmul_kernel", "int8_matmul_stacked_kernel", "int8_matmul_dx_kernel")}
+        quant.int8_matmul_kernel = lambda x2, wq, s: quant._dq_product(x2, wq, s)
+        quant.int8_matmul_stacked_kernel = (
+            lambda x2, wq, s, i: quant.int8_matmul_stacked_plain(x2, wq, s, i))
+        quant.int8_matmul_dx_kernel = quant.int8_matmul_dx_plain
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.quant, n, fn)
+
+
+def _compare_with_plain_path(torch, trainer, path, images, captions):
+    """One micro-batch's loss and gradients by parameter group, through the
+    kernels and through the plain path."""
+    model, cfg0 = trainer.model, trainer.model.lm_config
+    micro = images.shape[0] // trainer.config.gradient_accumulation_steps
+    img, cap = images[:micro], captions[:micro]
+    loss_k, g_k = _group_grads(torch, trainer, img, cap, 7)
+    model.lm_config = dataclasses.replace(cfg0, attention_impl="xla")
+    try:
+        if path == "B":
+            with _PlainInt8():
+                loss_p, g_p = _group_grads(torch, trainer, img, cap, 7)
+        else:
+            loss_p, g_p = _group_grads(torch, trainer, img, cap, 7)
+    finally:
+        model.lm_config = cfg0
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    rel = {k: ((g_k[k] - g_p[k]).norm() / g_p[k].norm()).item() for k in g_p}
+    print(f"[path {path}] one micro-batch through the kernels vs the plain path: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel {rel_loss:.3e}, tol {TRAIN_LOSS_TOL}); gradient "
+          f"|g - g_plain| / |g_plain| by group: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rel.items()))
+          + f" (tol {TRAIN_GRAD_TOL})")
+    check(rel_loss <= TRAIN_LOSS_TOL, f"path {path}: loss differs from the plain path's")
+    check(all(v <= TRAIN_GRAD_TOL for v in rel.values()),
+          f"path {path}: gradients differ from the plain path's: {rel}")
+
+
+def _profile_train_step(torch, trainer, batch, wall_ms, tag):
+    """Device busy ms, kernel count and idle share (1 - busy / wall, wall the
+    median unprofiled step) of one train step, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+    kernels = _kernel_events(torch, prof)
+    if not kernels:
+        print(f"[{tag}] one train step: device time not measured (the profiler saw no kernels)")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    print(f"[{tag}] one train step: device busy {busy:.2f} ms in {len(kernels)} kernels, "
+          f"wall {wall_ms:.2f} ms (median unprofiled step), idle share {1 - busy / wall_ms:.3f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[{tag}]   {ms:.3f} ms  {name[:90]}")
+
+
+def _time_optimizer(torch, trainer, batch, wall_ms, tag):
+    """Wall ms of the optimizer's update within one train step, the card
+    synchronised before and after it, against the median unprofiled step."""
+    opt = trainer.optimizer
+    spans = []
+
+    def timed(grads):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        applied = type(opt).step(opt, grads)
+        torch.cuda.synchronize()
+        spans.append((time.perf_counter() - t) * 1e3)
+        return applied
+
+    opt.step = timed
+    try:
+        trainer.train_step(*batch)
+    finally:
+        del opt.step
+    print(f"[{tag}] optimizer update: {spans[0]:.2f} ms wall over {len(opt.params)} tensors "
+          f"(card synchronised before and after), {spans[0] / wall_ms:.3f} of the median step")
+
+
+def phase_training(torch, path):
+    """Phase 8 (path A) or 9 (path B): the Trainer at full width.  Returns
+    the launches of its TRAIN_STEPS steps by wrapper."""
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.training.optim import label_params
+    from magma_tpu_torch.training.train_loop import Trainer
+    from magma_tpu_torch.utils import tree_items
+
+    tag = f"path {path}"
+    cfg = _train_config(path)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = Magma(cfg, seed=0, device=dev)
+    trainer = Trainer(model, cfg)
+    torch.cuda.synchronize()
+    lm = model.lm_config
+    L, seq, ga = lm.n_layers, model.seq_len, cfg.gradient_accumulation_steps
+    n_chunks = -(-(seq - 1) // 256)
+    micro = cfg.batch_size // ga
+    frozen = [t for _, t in tree_items(trainer.params) if not t.requires_grad]
+    n_trainable = sum(t.numel() for _, t in trainer.trainable)
+    print(f"[{tag}] Magma({CONFIG.name}) + Trainer in {time.perf_counter() - t0:.1f} s: "
+          f"{'int8 QLoRA layout' if cfg.train_lm_int8 else 'bf16 LM'}, "
+          f"{nbytes(*frozen) / 1e9:.2f} GB frozen, {n_trainable / 1e6:.1f} M trainable, seq {seq}, "
+          f"ga {ga} x micro {micro}, lr {cfg.lr}, image_enc_lr {cfg.image_enc_lr}, dropout "
+          f"{cfg.image_embed_dropout_prob}, attention {lm.attention_impl}, remat {lm.remat}")
+    check(lm.remat and lm.attention_impl == "flash" and seq == 2048, f"{tag}: not the recipe")
+    frozen_sums = _checksums(torch, frozen)
+    labels = dict(tree_items(label_params(trainer.params)))
+    before = {}
+    for p, t in trainer.trainable:
+        before.setdefault(labels[p], []).append(t.detach().clone())
+
+    wrappers = _all_wrappers()
+    want = _want_train_launches(path, L, n_chunks, ga)
+    totals = dict.fromkeys(wrappers, 0)
+    times, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        batch = _train_batch(torch, cfg, seq, 100 + step)
+        for fn in wrappers.values():
+            fn.launches = 0  # count this step only
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = trainer.train_step(*batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        for k in totals:
+            totals[k] += got[k]
+        losses.append(loss)
+        print(f"[{tag}] step {step + 1}: loss {loss:.6f}, {times[-1]:.1f} ms, launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+        check(np.isfinite(loss), f"{tag}: non-finite loss at step {step + 1}")
+        check(got == want, f"{tag} step {step + 1}: launches {got}, expected {want}")
+    step_ms = statistics.median(times[1:])
+    print(f"[{tag}] step {step_ms:.1f} ms (CUDA events, median of steps 2-{TRAIN_STEPS}), "
+          f"{cfg.batch_size * seq / step_ms * 1e3:.0f} tokens/s ({cfg.batch_size} x {seq} "
+          f"tokens a step), peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    same = _checksums(torch, frozen) == frozen_sums
+    print(f"[{tag}] frozen LM bit-unchanged ({len(frozen)} leaves, checksums): {same}")
+    check(same, f"{tag}: a frozen leaf changed")
+    moved = {}
+    for p, t in trainer.trainable:
+        moved.setdefault(labels[p], []).append(t.detach())
+    moved = {k: any(not torch.equal(a, b) for a, b in zip(before[k], v)) for k, v in moved.items()}
+    print(f"[{tag}] trainable groups moved: {moved}")
+    check(all(moved.values()), f"{tag}: a trainable group did not move: {moved}")
+    del before
+
+    _compare_with_plain_path(torch, trainer, path, *_train_batch(torch, cfg, seq, 200))
+    if path == "B":
+        batch = _train_batch(torch, cfg, seq, 300)
+        gate = [trainer.train_step(*batch) for _ in range(10)]
+        print(f"[{tag}] overfit gate, 10 steps on one batch: losses "
+              + " ".join(f"{x:.4f}" for x in gate)
+              + f"; step 10 {gate[-1]:.4f} < step 1 {gate[0]:.4f} - {OVERFIT_MARGIN}: "
+              f"{gate[-1] < gate[0] - OVERFIT_MARGIN}")
+        check(gate[-1] < gate[0] - OVERFIT_MARGIN, f"{tag}: the overfit gate failed: {gate}")
+    _profile_train_step(torch, trainer, _train_batch(torch, cfg, seq, 400), step_ms, tag)
+    _time_optimizer(torch, trainer, _train_batch(torch, cfg, seq, 500), step_ms, tag)
+    del trainer, model, frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     if not (ROOT / "magma_tpu_torch").is_dir():
         return fail("run from a checkout of the repository: magma_tpu_torch/ is missing")
@@ -1610,6 +2034,7 @@ def main() -> int:
     int8_entries = phase_int8_kernels(torch)
     int4_entries = phase_int4_kernels(torch)
     decode_entries = phase_decode_layer_kernels(torch)
+    train_entries = phase_train_kernels(torch)
     model, emb, greedy_tokens, bf16_launches = phase_slice(torch)
     check(bf16_launches > 0, "the bf16 path launched no K1 kernel")
     phase_kernel_vs_plain_path(torch, model, emb, greedy_tokens)
@@ -1623,15 +2048,20 @@ def main() -> int:
     paths["int4"] = launches4
     paths["int4 agreement"] = phase_decode_agreement(torch, model, emb4, tokens4, "int4")
     paths["int4+kv8"] = phase_int4_kv8(torch, model, emb4, tokens4)
+    del model, emb4, tokens4  # free the int4 model before training
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train A"] = phase_training(torch, "A")
+    paths["train B"] = phase_training(torch, "B")
 
     launches = {k: sum(p[k] for p in paths.values()) for k in _all_wrappers()}
     launches["flash_attention_kernel"] += bf16_launches
     for wrapper, n in launches.items():
         check(n > 0, f"no path launched {wrapper}")
     k1["launches"] = launches["flash_attention_kernel"]
-    entries = {**int8_entries, **int4_entries, **decode_entries}
+    entries = {**int8_entries, **int4_entries, **decode_entries, **train_entries}
     kernels = [k1] + [dict(entries[w], launches=launches[w])
-                      for w in (*INT8_KERNELS, *INT4_KERNELS, *DECODE_KERNELS)]
+                      for w in (*INT8_KERNELS, *INT4_KERNELS, *DECODE_KERNELS, *TRAIN_KERNELS)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"done in {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -6,8 +6,11 @@ each Pallas kernel on its path with a hand-written Hopper kernel
 (``csrc/``).  It covers the single-image caption path:
 ``Magma.from_checkpoint`` -> ``preprocess_inputs`` -> ``embed`` ->
 ``generate``, at bf16 with prefill attention as a CUDA kernel, and after
-``Magma.quantize_for_serving(bits=8)`` with the int8 products as CUDA
-kernels too.
+``Magma.quantize_for_serving(bits=8 or 4)`` with the quantized products
+and the whole-layer decode as CUDA kernels too; and adapter training
+(``magma_tpu_torch.training.train_loop.Trainer``), bf16 or over the int8
+QLoRA layout, with the flash-attention backward and the int8 input
+gradient as CUDA kernels.
 """
 
 from magma_tpu_torch.config import MultimodalConfig, load_config

@@ -199,16 +199,23 @@ def from_jax_params(params_np: Dict, state_np: Optional[Dict], lm_cfg, prefix_cf
     arrays, -> the port's (params, state) on ``device``.
 
     LM leaves take ``lm_cfg.param_dtype`` (adapters its
-    ``adapter_param_dtype``), except those of the int8 serving layout
-    (``gptj.quantize_lm_params``), which keep the dtype JAX stores them in:
-    int8 weights and int4 packs, fp32 scales, biases and ``bvecs``; the
+    ``adapter_param_dtype``), except those of the int8 serving and QLoRA
+    layouts (``gptj.quantize_lm_params``), which keep the dtype JAX stores
+    them in: int8 weights and int4 packs, fp32 scales, biases and ``bvecs``
+    (and every {"q", "s"} pack, such as the QLoRA layout's o); the
     int4 layout's "dsb"/"dsb2" are dropped, so the tree has the leaves of
     the port's own ``quantize_lm_params_int4``.  The image prefix and BN
     stats stay fp32; conv kernels go HWIO -> OIHW."""
     del prefix_cfg  # same tree for every ported encoder
 
+    def in_pack(path):  # a leaf of an int8 {"q", "s"} pack
+        node = params_np["lm"]
+        for p in path[:-1]:
+            node = node[p]
+        return isinstance(node, dict) and {"q", "s"} <= node.keys()
+
     def lm_leaf(path, a):
-        if any(p in _SERVING_PACKS for p in path):
+        if any(p in _SERVING_PACKS for p in path) or in_pack(path):
             return torch.from_numpy(np.array(a)).to(device)
         is_adapter = any(str(p).startswith("adapter") for p in path)
         return _tensor(a, lm_cfg.adapter_param_dtype if is_adapter else lm_cfg.param_dtype,

@@ -34,7 +34,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
+
+using namespace mma_tiles;
 
 constexpr int BLOCK_M = 64;  // query rows per block: 4 warps x 16 rows
 constexpr int BLOCK_N = 32;  // kv rows per tile
@@ -60,63 +64,6 @@ struct Params {
   int causal;
   int q_offset;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; a row past the tensor's end is zero-filled
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit_and_wait() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + ROWS) of one (batch, head) slice -> shared, row stride HD + PAD
-template <int ROWS, int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long row_stride, int row0, int n_rows) {
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NUM_THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    const bool valid = row0 + r < n_rows;
-    const __nv_bfloat16* src = valid ? base + (long long)(row0 + r) * row_stride + c : base;
-    cp_async_16(dst + r * (HD + PAD) + c, src, valid);
-  }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_kernel(const Params p) {
@@ -147,7 +94,7 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_kernel(const Params p) 
   int n_end = kv_len;
   if (p.causal) n_end = min(n_end, p.q_offset + q0 + BLOCK_M);
 
-  load_tile<BLOCK_M, HD>(sQ, qb, p.q_ss, q0, p.s_q);
+  load_rows<BLOCK_M, HD, LDS, NUM_THREADS>(sQ, qb, p.q_ss, q0, p.s_q);
 
   float acc[D_TILES][4];
 #pragma unroll
@@ -159,8 +106,8 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_kernel(const Params p) 
 
   for (int n0 = 0; n0 < n_end; n0 += BLOCK_N) {
     __syncthreads();  // the previous tile's K/V reads are done
-    load_tile<BLOCK_N, HD>(sK, kb, p.k_ss, n0, p.s_k);
-    load_tile<BLOCK_N, HD>(sV, vb, p.v_ss, n0, p.s_k);
+    load_rows<BLOCK_N, HD, LDS, NUM_THREADS>(sK, kb, p.k_ss, n0, p.s_k);
+    load_rows<BLOCK_N, HD, LDS, NUM_THREADS>(sV, vb, p.v_ss, n0, p.s_k);
     cp_async_commit_and_wait();
     __syncthreads();
 
@@ -171,13 +118,11 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_kernel(const Params p) 
 #pragma unroll
     for (int kk = 0; kk < HD; kk += 16) {
       uint32_t a[4];
-      ldmatrix_x4(a, sQ + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDS + kk +
-                         (lane / 16) * 8);
+      load_a<LDS>(a, sQ, warp * 16, kk, lane);
 #pragma unroll
       for (int t = 0; t < N_TILES; t += 2) {
         uint32_t b[4];
-        ldmatrix_x4(b, sK + (t * 8 + (lane % 8) + (lane / 16) * 8) * LDS + kk +
-                           ((lane / 8) % 2) * 8);
+        load_b_nk<LDS>(b, sK, t * 8, kk, lane);
         mma_16816(s[t], a, b[0], b[1]);
         mma_16816(s[t + 1], a, b[2], b[3]);
       }
@@ -233,15 +178,12 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_kernel(const Params p) 
     // O += P V, P (bf16) straight from the score registers
 #pragma unroll
     for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t a[4];
+      acc_to_a<N_TILES>(a, s, kk);
 #pragma unroll
       for (int j = 0; j < D_TILES; j += 2) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, sV + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDS + j * 8 +
-                                 (lane / 16) * 8);
+        load_b_kn<LDS>(b, sV, kk * 16, j * 8, lane);
         mma_16816(acc[j], a, b[0], b[1]);
         mma_16816(acc[j + 1], a, b[2], b[3]);
       }

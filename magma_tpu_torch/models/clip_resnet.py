@@ -18,9 +18,13 @@ package's key for key.
 
 Numerics follow the JAX package, not torchvision: a 3x3 conv pads "SAME",
 which at stride 2 on an even input is (0, 1), not (1, 1); conv inputs and
-kernels are cast to ``compute_dtype`` and the output is taken in fp32; BN
-uses the running statistics.  ``fold_bn`` makes the serving copy whose
-tower runs bf16 end to end.  The training mode is not ported.
+kernels are cast to ``compute_dtype`` and the output is taken in fp32.  BN
+is fp32 and functional: inference uses the running statistics; training
+(``apply(..., train=True)``) normalises by the batch statistics over (N,
+H, W) with the biased variance and returns the momentum-0.1 running
+statistics as the new state (``clip_resnet.py:103-116``), computed here,
+not by ``F.batch_norm``, whose running variance is the unbiased one.
+``fold_bn`` makes the serving copy whose tower runs bf16 end to end.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ class ClipResNetConfig:
     input_resolution: int = 384
     compute_dtype: object = torch.bfloat16  # a torch dtype or its name
     bn_eps: float = 1e-5
+    bn_momentum: float = 0.1
 
     @classmethod
     def named(cls, name: str, **overrides) -> "ClipResNetConfig":
@@ -212,54 +217,77 @@ def _apply_folded(params: Dict, images: torch.Tensor, cfg: ClipResNetConfig) -> 
     return x.flatten(2).transpose(1, 2).to(cdt)
 
 
-def _bn(x: torch.Tensor, p: Dict, s: Dict, eps: float) -> torch.Tensor:
-    """Inference BatchNorm over NCHW fp32 from the running statistics."""
+def _bn(x: torch.Tensor, p: Dict, s: Dict, cfg: ClipResNetConfig,
+        train: bool) -> Tuple[torch.Tensor, Dict]:
+    """BatchNorm over NCHW fp32.  Returns (y, new running stats): inference
+    reads the running statistics and keeps them; training normalises by the
+    batch mean and biased variance over (N, H, W) and moves the running
+    statistics by ``bn_momentum`` (their update carries no gradient)."""
 
     def c(t):
         return t.float()[None, :, None, None]
 
-    return (x - c(s["mean"])) * torch.rsqrt(c(s["var"]) + eps) * c(p["scale"]) + c(p["bias"])
+    if train:
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), unbiased=False)
+        m = cfg.bn_momentum
+        new_s = {"mean": ((1 - m) * s["mean"] + m * mean).detach(),
+                 "var": ((1 - m) * s["var"] + m * var).detach()}
+    else:
+        mean, var, new_s = s["mean"], s["var"], s
+    return (x - c(mean)) * torch.rsqrt(c(var) + cfg.bn_eps) * c(p["scale"]) + c(p["bias"]), new_s
 
 
 def _avgpool(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.avg_pool2d(x, k)  # VALID k x k window, stride k
 
 
-def _bottleneck(x, bp, bs, stride, cfg):
+def _bottleneck(x, bp, bs, stride, cfg, train):
     """1x1 -> 3x3 -> (avgpool if stride) -> 1x1, with an avgpool + 1x1
-    shortcut on downsampling blocks."""
-    cdt, eps = to_dtype(cfg.compute_dtype), cfg.bn_eps
-    out = torch.relu(_bn(_conv(x, bp["conv1"], 1, cdt), bp["bn1"], bs["bn1"], eps))
-    out = torch.relu(_bn(_conv(out, bp["conv2"], 1, cdt), bp["bn2"], bs["bn2"], eps))
+    shortcut on downsampling blocks.  Returns (y, new block stats)."""
+    cdt = to_dtype(cfg.compute_dtype)
+    new_bs = dict(bs)
+    out, new_bs["bn1"] = _bn(_conv(x, bp["conv1"], 1, cdt), bp["bn1"], bs["bn1"], cfg, train)
+    out, new_bs["bn2"] = _bn(_conv(torch.relu(out), bp["conv2"], 1, cdt), bp["bn2"], bs["bn2"],
+                             cfg, train)
+    out = torch.relu(out)
     if stride > 1:
         out = _avgpool(out, stride)
-    out = _bn(_conv(out, bp["conv3"], 1, cdt), bp["bn3"], bs["bn3"], eps)
+    out, new_bs["bn3"] = _bn(_conv(out, bp["conv3"], 1, cdt), bp["bn3"], bs["bn3"], cfg, train)
     if "down_conv" in bp:
         sc = _avgpool(x, stride) if stride > 1 else x
-        sc = _bn(_conv(sc, bp["down_conv"], 1, cdt), bp["down_bn"], bs["down_bn"], eps)
+        sc, new_bs["down_bn"] = _bn(_conv(sc, bp["down_conv"], 1, cdt), bp["down_bn"],
+                                    bs["down_bn"], cfg, train)
     else:
         sc = x
-    return torch.relu(out + sc)
+    return torch.relu(out + sc), new_bs
 
 
 def apply(params: Dict, stats: Dict, images: torch.Tensor, cfg: ClipResNetConfig,
           *, train: bool = False) -> Tuple[torch.Tensor, Dict]:
     """(b, 3, H, W) images -> ((b, tokens, out_dim) features in the compute
-    dtype, batch stats unchanged).  Inference mode only; ``fold_bn``'s
-    folded params run the bf16 serving tower."""
-    if train:
-        raise NotImplementedError("the port's CLIP ResNet has no training mode yet")
+    dtype, new batch stats: the running statistics moved by this batch when
+    ``train``, else unchanged).  ``fold_bn``'s folded params run the bf16
+    serving tower, inference only."""
     if is_folded(params):
+        if train:
+            raise ValueError("folded (serving) params are inference-only")
         return _apply_folded(params, images, cfg), stats
     cdt = to_dtype(cfg.compute_dtype)
     x = images.float()
+    new_stats: Dict = {"stem": {}}
     for i, stride in enumerate((2, 1, 1), start=1):
-        x = _conv(x, params["stem"][f"conv{i}"], stride, cdt)
-        x = torch.relu(_bn(x, params["stem"][f"bn{i}"], stats["stem"][f"bn{i}"], cfg.bn_eps))
+        x, new_stats["stem"][f"bn{i}"] = _bn(_conv(x, params["stem"][f"conv{i}"], stride, cdt),
+                                             params["stem"][f"bn{i}"], stats["stem"][f"bn{i}"],
+                                             cfg, train)
+        x = torch.relu(x)
     x = _avgpool(x, 2)
     for stage in range(1, 5):
+        stage_new = []
         for b, (bp, bs) in enumerate(zip(params[f"layer{stage}"], stats[f"layer{stage}"])):
             stride = (2 if stage > 1 else 1) if b == 0 else 1
-            x = _bottleneck(x, bp, bs, stride, cfg)
+            x, nbs = _bottleneck(x, bp, bs, stride, cfg, train)
+            stage_new.append(nbs)
+        new_stats[f"layer{stage}"] = stage_new
     # "b d h w -> b (h w) d"
-    return x.flatten(2).transpose(1, 2).to(cdt), stats
+    return x.flatten(2).transpose(1, 2).to(cdt), new_stats

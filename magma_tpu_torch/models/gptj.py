@@ -29,9 +29,13 @@ fp32 output over ``wte`` whose vocab-padding rows are zero, a KV cache
 (L, b, max_len, h, hd) written once per forward after all layers: bf16, or
 with ``kv_cache_dtype="int8"`` int8 codes with one bf16 scale per (layer,
 row, head, position), stored position-minor (L, b, h, max_len).
-Training (remat), ring/sp attention, ``history_attention`` (the serving
-engine's chunked prefill) and the tensor-parallel and QLoRA int8 layouts
-are not ported.
+Training: ``forward`` without a cache is differentiable (flash attention
+through K1/K9a/K9b, the int8 products through K2a/K2b and K10), with remat
+as ``torch.utils.checkpoint`` around each layer; ``quantize_lm_params(
+fuse_out_proj=False)`` builds the QLoRA layout (in_proj fused, o and
+fc_out separate int8 stacks, bf16 adapters).  Ring/sp attention,
+``history_attention`` (the serving engine's chunked prefill), the
+tensor-parallel int8 layout and ``pack_lm_params_bf16`` are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from magma_tpu_torch.models.adapters import AdapterSpec, apply_adapter, init_adapter
 from magma_tpu_torch.ops.attention import causal_attention, decode_attention
@@ -70,6 +75,9 @@ class GPTJConfig:
     attention_impl: str = "flash"
     # "bf16" or "int8" (per-(position, head) scales; halves the cache stream)
     kv_cache_dtype: str = "bf16"
+    # recompute each layer in the backward (torch.utils.checkpoint) instead
+    # of keeping its activations
+    remat: bool = True
     mlp_adapter: Optional[AdapterSpec] = None
     attn_adapter: Optional[AdapterSpec] = None
 
@@ -92,6 +100,7 @@ class GPTJConfig:
         base = dict(
             n_layers=2, n_heads=4, d_model=128, d_ff=512, rotary_dim=16,
             vocab_size=50258, max_seq_len=256, attention_impl="xla",
+            remat=False,
         )
         base.update(overrides)
         return cls(**base)
@@ -243,19 +252,19 @@ def _attach_bvecs(params: Dict) -> None:
     blocks["bvecs"] = bvecs
 
 
-def quantize_lm_params(params: Dict) -> Dict:
-    """Weight-only int8 serving layout, byte-identical to the JAX
-    package's ``quantize_lm_params`` (``gptj.py:344-457``): q/k/v/fc_in
-    quantized per layer and concatenated along N into "in_proj"; o and
-    fc_out concatenated along K into "out_proj" with (L, 2, N) scales; the
-    untied int8 head "lm_head_q" from ``wte``; "bvecs"; the adapters in the
-    fused-int8 layout.  Layernorms, biases and ``wte`` (the embedding) keep
+def quantize_lm_params(params: Dict, *, fuse_out_proj: bool = True) -> Dict:
+    """Weight-only int8 layouts, byte-identical to the JAX package's jitted
+    ``quantize_lm_params`` (``gptj.py:344-457``): q/k/v/fc_in quantized per
+    layer and concatenated along N into "in_proj" and the untied int8 head
+    "lm_head_q" from ``wte``.  ``fuse_out_proj=True`` (serving) also
+    concatenates o and fc_out along K into "out_proj" with (L, 2, N)
+    scales, adds "bvecs" and packs the adapters in the fused-int8 layout;
+    ``fuse_out_proj=False`` (QLoRA training, ``train_lm_int8``) keeps o and
+    fc_out as separate int8 stacks, differentiable in their inputs, and the
+    adapters in bf16.  Layernorms, biases and ``wte`` (the embedding) keep
     their dtype.  Mutates (and returns) ``params``, dropping the originals
-    as it goes.
-
-    Only this serving layout (the JAX defaults fuse_in_proj=True,
-    fuse_out_proj=True) is ported: the tensor-parallel layout waits for
-    parallelism and the QLoRA layout for training."""
+    as it goes.  The tensor-parallel layout (``fuse_in_proj=False``) waits
+    for parallelism."""
     from magma_tpu_torch.ops.quant import quantize_int8
 
     params.pop("lm_head_q", None)
@@ -265,14 +274,19 @@ def quantize_lm_params(params: Dict) -> Dict:
     attn["in_proj"] = {"q": torch.cat([p["q"] for p in pieces], dim=-1),
                        "s": torch.cat([p["s"] for p in pieces], dim=-1)}
     del pieces
-    o_q = _quantize_stacked(attn.pop("o"))
-    f_q = _quantize_stacked(mlp["fc_out"].pop("kernel"))
-    attn["out_proj"] = {"q": torch.cat([o_q["q"], f_q["q"]], dim=1),
-                        "s": torch.stack([o_q["s"], f_q["s"]], dim=1)}
-    del o_q, f_q
+    if fuse_out_proj:
+        o_q = _quantize_stacked(attn.pop("o"))
+        f_q = _quantize_stacked(mlp["fc_out"].pop("kernel"))
+        attn["out_proj"] = {"q": torch.cat([o_q["q"], f_q["q"]], dim=1),
+                            "s": torch.stack([o_q["s"], f_q["s"]], dim=1)}
+        del o_q, f_q
+    else:
+        attn["o"] = _quantize_stacked(attn["o"])
+        mlp["fc_out"]["kernel"] = _quantize_stacked(mlp["fc_out"]["kernel"])
     params["lm_head_q"] = quantize_int8(params["wte"].float().T, compiled=True)
-    _attach_bvecs(params)
-    return _serving_cast_adapters(params, mode="fused_int8")
+    if fuse_out_proj:
+        _attach_bvecs(params)
+    return _serving_cast_adapters(params, mode="fused_int8" if fuse_out_proj else "bf16")
 
 
 def _quantize_stacked_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -614,11 +628,16 @@ def forward(
     kv_len: Optional[torch.Tensor] = None,
     cache: Optional[Dict] = None,
     cache_index=None,
+    remat: Optional[bool] = None,
     return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """LM forward from embeddings.  Returns (fp32 logits, cache), or
-    (hidden after ln_f, cache) with ``return_hidden=True``.  ``cache`` is
-    updated in place."""
+    (hidden after ln_f, cache) with ``return_hidden=True`` (the chunked
+    training loss's input: the full logits never exist).  ``cache`` is
+    updated in place.  Without a cache, ``remat`` (default ``cfg.remat``)
+    runs each layer under ``torch.utils.checkpoint(use_reentrant=False)``
+    when autograd records: the backward recomputes the layer (its K1 and
+    int8 products launch again) instead of keeping its activations."""
     b, s, _ = inputs_embeds.shape
     cdt = cfg.compute_dtype
     x = inputs_embeds.to(cdt)
@@ -634,6 +653,9 @@ def forward(
                                                      cache_index)
     elif cache is not None and _boundary_ok(cfg, blocks, x):
         x, k_news, v_news = _run_decode_boundary(cfg, blocks, x, sin, cos, cache, cache_index)
+    elif cache is None and (cfg.remat if remat is None else remat) and torch.is_grad_enabled():
+        for bp in _layer_views(blocks, cfg.n_layers):
+            x = checkpoint(_block_no_cache, cfg, bp, x, sin, cos, kv_len, use_reentrant=False)
     else:
         k_news, v_news = [], []
         for i, bp in enumerate(_layer_views(blocks, cfg.n_layers)):
@@ -653,11 +675,33 @@ def forward(
     return lm_head(cfg, params, x), cache
 
 
+def _block_no_cache(cfg, bp, x, sin, cos, kv_len):
+    return _block(cfg, bp, x, sin, cos, kv_len, None, None)[0]
+
+
+class _HeadF32(torch.autograd.Function):
+    """bf16 hidden (M, D) @ bf16 wte (V, D)^T accumulated and returned in
+    fp32 on the card (``preferred_element_type=float32``); the input
+    gradient likewise, from the fp32 output gradient rounded to bf16.  No
+    gradient for wte, the frozen embedding."""
+
+    @staticmethod
+    def forward(ctx, flat, w):
+        ctx.save_for_backward(w)
+        return torch.mm(flat, w.T, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return torch.mm(g.to(w.dtype), w, out_dtype=torch.float32).to(w.dtype), None
+
+
 def lm_head(cfg: GPTJConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
-    """Hidden states -> fp32 logits: the int8 head ``lm_head_q`` (K2a)
-    when ``quantize_lm_params`` made one, else the tied (padded) ``wte``,
-    the product accumulated in fp32 and returned unrounded, as
-    ``preferred_element_type=float32`` gives it in the JAX package."""
+    """Hidden states -> fp32 logits: the int8 head ``lm_head_q`` (K2a,
+    differentiable through K10) when ``quantize_lm_params`` made one, else
+    the tied (padded) ``wte``, the product accumulated in fp32 and returned
+    unrounded, as ``preferred_element_type=float32`` gives it in the JAX
+    package."""
     if "lm_head_q" in params:
         return _mm(hidden, params["lm_head_q"], torch.float32)
     w = params["wte"].to(hidden.dtype)
@@ -665,7 +709,7 @@ def lm_head(cfg: GPTJConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor
         return hidden @ w.T
     if hidden.is_cuda:
         flat = hidden.reshape(-1, hidden.shape[-1])
-        out = torch.mm(flat, w.T, out_dtype=torch.float32)
+        out = _HeadF32.apply(flat, w)
         return out.reshape(*hidden.shape[:-1], w.shape[0])
     return hidden.float() @ w.float().T
 

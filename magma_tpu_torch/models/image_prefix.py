@@ -3,8 +3,10 @@
 Port of the spatial-encoder path of ``magma_tpu/models/image_prefix.py``
 (reference magma/image_prefix.py:24-109): a CLIP ResNet emits
 (b, tokens, enc_dim); one linear projects enc_dim -> lm_dim; dropout
-(identity at inference) and an optional LayerNorm follow.  The pooled
-towers ("clip" ViT, "nfresnet50") are not ported yet and raise.
+(identity at inference; in training the JAX package's keep / rescale
+rule with bits from a ``torch.Generator``) and an optional fp32 LayerNorm
+follow.  The pooled towers ("clip" ViT, "nfresnet50") are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ def get_encoder(name: str, overrides: Optional[dict] = None):
 class ImagePrefixConfig:
     encoder_name: str = "clip_resnet_large"
     out_dim: int = 4096            # LM hidden size
+    dropout_prob: float = 0.0
     use_layernorm: bool = False
     encoder_overrides: Optional[tuple] = None  # tuple(sorted(dict.items()))
     compute_dtype: object = torch.bfloat16
@@ -86,15 +89,22 @@ def fold_for_serving(params: Dict, stats: Dict, cfg: ImagePrefixConfig) -> Dict:
 
 
 def apply(params: Dict, stats: Dict, images: torch.Tensor, cfg: ImagePrefixConfig,
-          *, train: bool = False) -> Tuple[torch.Tensor, Dict]:
+          *, train: bool = False, generator: Optional[torch.Generator] = None
+          ) -> Tuple[torch.Tensor, Dict]:
     """(b, 3, H, W) images -> ((b, out_seq_len, out_dim) embeddings in the
-    compute dtype, batch stats).  Inference only: dropout is the identity."""
-    if train:
-        raise NotImplementedError("the port's ImagePrefix has no training mode yet")
+    compute dtype, new batch stats).  ``train`` runs the tower's training
+    BN and, with ``dropout_prob`` > 0, dropout: an element is kept with
+    probability 1 - p and scaled by 1 / (1 - p) (``image_prefix.py:148-151``),
+    the bits drawn from ``generator`` (JAX's bits cannot be reproduced)."""
     module, enc_cfg, _ = cfg.encoder
     cdt = to_dtype(cfg.compute_dtype)
-    feats, enc_stats = module.apply(params["enc"], stats["enc"], images, enc_cfg)
+    feats, enc_stats = module.apply(params["enc"], stats["enc"], images, enc_cfg, train=train)
     x = feats.to(cdt) @ params["proj"]["kernel"].to(cdt) + params["proj"]["bias"].to(cdt)
+    if train and cfg.dropout_prob > 0.0:
+        if generator is None:
+            raise ValueError("dropout in training needs a generator")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - cfg.dropout_prob
+        x = torch.where(keep, x / (1.0 - cfg.dropout_prob), 0.0).to(cdt)
     if "ln" in params:
         x32 = x.float()
         mean = x32.mean(-1, keepdim=True)

@@ -8,8 +8,10 @@ the vision tower's BN statistics in ``self.state``, as in the JAX package.
 Everything runs on ``device``, the GPU unless the caller asks for the CPU;
 nothing moves to the CPU when a GPU is asked for and missing.
 ``quantize_for_serving(bits=8)`` gives the int8 serving path and
-``quantize_for_serving(bits=4)`` the int4 one.  ``trainable_mask``,
-``loss_fn`` and ``pack_for_serving`` are not ported.
+``quantize_for_serving(bits=4)`` the int4 one.  Training: ``trainable_mask``
+(the freezing policy), ``loss_fn`` (differentiable with torch.autograd)
+and ``forward``; ``train_lm_int8`` quantizes the frozen LM into the QLoRA
+layout right after init.  ``pack_for_serving`` is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ from magma_tpu_torch.models import gptj, image_prefix as ip_mod
 from magma_tpu_torch.models.adapters import AdapterSpec
 from magma_tpu_torch.ops.sampling import generate_tokens, strip_after_eos
 from magma_tpu_torch.tokenizer import get_tokenizer
-from magma_tpu_torch.utils import to_dtype
+from magma_tpu_torch.training.labels import (build_labels, causal_lm_loss,
+                                             causal_lm_loss_chunked)
+from magma_tpu_torch.utils import to_dtype, tree_map, tree_paths
 
 
 def build_lm_config(config: MultimodalConfig) -> gptj.GPTJConfig:
@@ -39,6 +43,7 @@ def build_lm_config(config: MultimodalConfig) -> gptj.GPTJConfig:
                              else config.param_dtype),
         adapter_param_dtype=to_dtype(config.param_dtype),
         attention_impl=config.attention_impl,
+        remat=config.remat,
         mlp_adapter=AdapterSpec.from_dict(ac["mlp"]) if ac.get("mlp") else None,
         attn_adapter=(AdapterSpec.from_dict(ac["attention"])
                       if ac.get("attention") else None),
@@ -53,6 +58,7 @@ def build_prefix_config(config: MultimodalConfig,
     return ip_mod.ImagePrefixConfig(
         encoder_name=config.encoder_name,
         out_dim=lm_cfg.d_model,
+        dropout_prob=config.image_embed_dropout_prob,
         use_layernorm=config.use_image_embed_layernorm,
         encoder_overrides=tuple(sorted(overrides.items())) or None,
         compute_dtype=to_dtype(config.compute_dtype),
@@ -105,11 +111,34 @@ class Magma:
             g = torch.Generator(device=self.device)
             g.manual_seed(seed)
             ip_params, ip_stats = ip_mod.init_params(g, self.prefix_config, self.device)
-            self.params = {
-                "lm": gptj.init_params(g, self.lm_config, self.device),
-                "image_prefix": ip_params,
-            }
+            lm = gptj.init_params(g, self.lm_config, self.device)
+            if config.train_lm_int8:
+                # QLoRA: the frozen LM in int8 with separate, differentiable
+                # o / fc_out products and bf16 adapters
+                if not config.freeze_lm:
+                    raise ValueError("train_lm_int8 requires a frozen LM (freeze_lm)")
+                lm = gptj.quantize_lm_params(lm, fuse_out_proj=False)
+            self.params = {"lm": lm, "image_prefix": ip_params}
             self.state = {"image_prefix": ip_stats}
+
+    # ------------------------------------------------------------------
+    # Freezing policy
+    # ------------------------------------------------------------------
+    def trainable_mask(self):
+        """A tree of bools over ``self.params``, True = trainable: the LM
+        frozen (unless not ``freeze_lm``) except its adapters, the image
+        prefix's projection and LN trainable, its encoder unless
+        ``freeze_img_encoder`` (``magma.py:173-190``)."""
+        cfg = self.config
+
+        def trainable(path: str) -> bool:
+            if path.startswith("lm"):
+                return "adapter" in path or not cfg.freeze_lm
+            if path.startswith("image_prefix/enc"):
+                return not cfg.freeze_img_encoder
+            return True
+
+        return tree_map(lambda _, path: trainable(path), self.params, tree_paths(self.params))
 
     # ------------------------------------------------------------------
     # Inference API
@@ -203,6 +232,49 @@ class Magma:
         ]
 
     # ------------------------------------------------------------------
+    # Training forward
+    # ------------------------------------------------------------------
+    def loss_fn(self, params, state, images: Optional[torch.Tensor], captions: torch.Tensor, *,
+                train: bool = True, generator: Optional[torch.Generator] = None,
+                input_embeddings: Optional[torch.Tensor] = None, return_logits: bool = False):
+        """The captioning loss, differentiable in the params that require
+        grad.  Returns (loss, (new_state, logits or None)).  Parity:
+        magma/magma.py:238-276.  Training takes the chunked loss (no
+        logits); ``return_logits=True`` the full fp32 logits.  ``generator``
+        draws the ImagePrefix dropout bits when ``train``."""
+        if captions is None:
+            raise ValueError("Must provide captions in training")
+        if (images is None) == (input_embeddings is None):
+            raise ValueError("Pass in either images, or input embeddings, not both.")
+        if captions.shape[1] != self.seq_len:
+            raise ValueError(f"in training, captions should be padded to sequence length "
+                             f"({self.seq_len}), but are length {captions.shape[1]}")
+        new_state = state
+        if input_embeddings is None:
+            input_embeddings, new_ip_stats = ip_mod.apply(
+                params["image_prefix"], state["image_prefix"], images, self.prefix_config,
+                train=train, generator=generator)
+            new_state = {"image_prefix": new_ip_stats}
+        s_img = input_embeddings.shape[1]
+        labels = build_labels(s_img, captions, self.eos_token)
+        word_embeds = gptj.embed_tokens(self.lm_config, params["lm"], captions.long())
+        # drop the caption's right padding so the total stays seq_len
+        embeds = torch.cat([input_embeddings, word_embeds[:, :self.seq_len - s_img]], dim=1)
+        if return_logits:
+            logits, _ = gptj.forward(self.lm_config, params["lm"], embeds)
+            return causal_lm_loss(logits, labels, self.lm_config.vocab_size), (new_state, logits)
+        hidden, _ = gptj.forward(self.lm_config, params["lm"], embeds, return_hidden=True)
+        loss = causal_lm_loss_chunked(self.lm_config, params["lm"], hidden, labels)
+        return loss, (new_state, None)
+
+    @torch.no_grad()
+    def forward(self, images, captions, input_embeddings=None):
+        """Eval/debug: (loss, fp32 logits) with ``train=False``."""
+        loss, (_, logits) = self.loss_fn(self.params, self.state, images, captions, train=False,
+                                         input_embeddings=input_embeddings, return_logits=True)
+        return loss, logits
+
+    # ------------------------------------------------------------------
     # Serving transforms
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -244,3 +316,4 @@ class Magma:
         model.params, model.state = load_torch_checkpoint(
             str(checkpoint_path), model.lm_config, model.prefix_config, model.device)
         return model
+

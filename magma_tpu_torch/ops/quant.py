@@ -5,8 +5,12 @@ Port of ``magma_tpu/ops/quant.py``'s serving products.  int8
 (``quantize_int8``, ``quantize_adapter_fused``):
 
 * ``int8_matmul`` (K2a, the untied head) and ``int8_matmul_stacked`` (K2b,
-  the fused [q|k|v|fc_in] in_proj): x (M, K) @ int8 W (K, N), the
-  per-column scale applied to the fp32 accumulator.
+  the fused [q|k|v|fc_in] in_proj; in the QLoRA layout also o and fc_out):
+  x (M, K) @ int8 W (K, N), the per-column scale applied to the fp32
+  accumulator.  Both are differentiable in x through a
+  ``torch.autograd.Function`` whose backward is K10
+  (``int8_matmul_dx_kernel``, ``csrc/int8_matmul_dx.cu``): dx = bf16(g s)
+  @ W^T read from the stored (K, N) layout; no gradient for the weights.
 * ``dual_matmul_stacked`` (K4a): o_proj and fc_out over the K-concatenated
   [W_o; W_f] stream in one launch, two outputs.
 * ``fused_adapter_stacked`` (K5): up(relu(down(x))) of the int8 bottleneck
@@ -24,8 +28,9 @@ in int32, both scales folded onto the fp32 sum group by group:
   layer's in_proj) in one launch for m <= 8 rows.
 
 The kernels are ``csrc/int8_matmul.cu`` (K2a, K2b, K4a),
-``csrc/fused_adapter.cu`` (K5), ``csrc/int4_matmul.cu`` (K3, K4b) and
-``csrc/boundary.cu`` (K6); their headers say what bounds them.  Each
+``csrc/fused_adapter.cu`` (K5), ``csrc/int4_matmul.cu`` (K3, K4b),
+``csrc/boundary.cu`` (K6) and ``csrc/int8_matmul_dx.cu`` (K10); their
+headers say what bounds them.  Each
 public function takes the kernel on CUDA tensors (launching it, or raising
 on what it does not take) and its ``*_plain`` twin on CPU tensors.  Off
 the kernels' geometry the JAX package computes outside any kernel, and so
@@ -167,6 +172,17 @@ def _fused_adapter_dequant(x, fz: Dict, layer_idx: int) -> torch.Tensor:
     h = torch.relu(_bf16_mm_f32(x2, wd) + fz["bd"][li, 0])
     out = _bf16_mm_f32(h.to(torch.bfloat16), wu) + fz["bu"][li, 0]
     return out.reshape(*lead, D)
+
+
+def int8_matmul_dx_plain(g: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """K10's function: the input gradient of x @ (wq (K, N) * scales (N,))
+    for an output gradient g (M, N): (g * s) formed in fp32 and rounded to
+    bf16, times the int8 codes (exact in bf16), contracted over N against
+    the stored (K, N) layout and accumulated in fp32 -> fp32 (M, K).  As
+    the Pallas kernel computes it (``quant.py:215-220``), not as JAX's CPU
+    fallback (fp32 throughout)."""
+    gs = (g.float() * scales.float()).to(torch.bfloat16).float()
+    return gs @ wq.float().T
 
 
 def _bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -347,9 +363,75 @@ def fused_adapter_kernel(x2: torch.Tensor, fz: Dict, layer_idx: int) -> torch.Te
     return out
 
 
+@functools.cache
+def _dx_fn():
+    from magma_tpu_torch.cuda_build import load_library
+
+    fn = load_library().magma_int8_matmul_dx
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def int8_matmul_dx_kernel(g: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """K10: g (M, N) fp32 contiguous, wq (K, N) int8, s (N,) fp32 -> dx (M, K)
+    fp32 = bf16(g s) @ wq^T, on the card (``csrc/int8_matmul_dx.cu``),
+    reading wq in its stored layout.  A layer of a stacked payload is passed
+    as its view.  Each launch adds one to ``int8_matmul_dx_kernel.launches``."""
+    _check_cuda("g", g, torch.float32, None)
+    if g.dim() != 2 or not g.is_contiguous() or g.data_ptr() % 16 or g.shape[0] == 0:
+        raise ValueError(f"g must be a contiguous 16-byte aligned (M, N) with M > 0, got "
+                         f"shape {tuple(g.shape)} strides {g.stride()}")
+    if wq.dim() != 2:
+        raise ValueError(f"w must be (K, N), got {tuple(wq.shape)}")
+    n = _check_weight("w", wq, s, wq.shape[0], g.device)
+    if g.shape[1] != n:
+        raise ValueError(f"g has {g.shape[1]} columns, w has N = {n}")
+    m, k = g.shape[0], wq.shape[0]
+    dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
+    err = _dx_fn()(g.data_ptr(), wq.data_ptr(), s.data_ptr(), dx.data_ptr(), m, n, k,
+                   torch.cuda.current_stream(g.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8 matmul dx kernel launch failed: cudaError {err}")
+    int8_matmul_dx_kernel.launches += 1
+    return dx
+
+
 for _fn in (int8_matmul_kernel, int8_matmul_stacked_kernel, dual_matmul_kernel,
-            fused_adapter_kernel):
+            fused_adapter_kernel, int8_matmul_dx_kernel):
     _fn.launches = 0
+
+
+def _int8_forward(x2, wq, s, layer):
+    """x2 (M, K) @ w (K, N) * s (N,) -> fp32 (M, N): K2a (K2b for layer
+    ``layer`` of a stacked payload) on CUDA tensors, the plain product on
+    CPU ones."""
+    if not x2.is_cuda:
+        return _dq_product(x2, *((wq, s) if layer is None else (wq[layer], s[layer])))
+    if layer is None:
+        return int8_matmul_kernel(x2, wq, s)
+    return int8_matmul_stacked_kernel(x2, wq, s, layer)
+
+
+class _Int8Matmul(torch.autograd.Function):
+    """``_int8_forward`` with backward K10 (its plain version on CPU
+    tensors).  Gradient for x2 only, in x2's dtype: the int8 weights are
+    frozen by contract, as in the JAX package's custom VJPs
+    (``quant.py:268-356``)."""
+
+    @staticmethod
+    def forward(ctx, x2, wq, s, layer):
+        ctx.save_for_backward(*((wq, s) if layer is None else (wq[layer], s[layer])))
+        ctx.x_dtype = x2.dtype
+        return _int8_forward(x2, wq, s, layer)
+
+    @staticmethod
+    def backward(ctx, g):
+        wl, sl = ctx.saved_tensors
+        g = g.float().contiguous()
+        dx = int8_matmul_dx_kernel(g, wl, sl) if g.is_cuda else int8_matmul_dx_plain(g, wl, sl)
+        return dx.to(ctx.x_dtype), None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -370,20 +452,18 @@ def _cast(t: torch.Tensor, out_dtype) -> torch.Tensor:
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor,
                 out_dtype=None) -> torch.Tensor:
     """x (..., K) @ dequant(wq (K, N), scales (N,)) -> (..., N), fp32 unless
-    ``out_dtype``."""
-    if not x.is_cuda:
-        return _cast(int8_matmul_plain(x, wq, scales), out_dtype)
-    out = int8_matmul_kernel(_rows(x), wq, scales)
+    ``out_dtype``.  Differentiable in x (K10 on the card)."""
+    x2 = _rows(x) if x.is_cuda else x.reshape(-1, x.shape[-1])
+    out = _Int8Matmul.apply(x2, wq, scales, None)
     return _cast(out.reshape(*x.shape[:-1], wq.shape[-1]), out_dtype)
 
 
 def int8_matmul_stacked(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor,
                         layer_idx: int, out_dtype=None) -> torch.Tensor:
     """x (..., K) @ layer ``layer_idx`` of stacked int8 wq (L, K, N) with
-    scales (L, N)."""
-    if not x.is_cuda:
-        return _cast(int8_matmul_stacked_plain(x, wq, scales, layer_idx), out_dtype)
-    out = int8_matmul_stacked_kernel(_rows(x), wq, scales, layer_idx)
+    scales (L, N).  Differentiable in x (K10 on the card)."""
+    x2 = _rows(x) if x.is_cuda else x.reshape(-1, x.shape[-1])
+    out = _Int8Matmul.apply(x2, wq, scales, layer_idx)
     return _cast(out.reshape(*x.shape[:-1], wq.shape[-1]), out_dtype)
 
 

@@ -1,0 +1,158 @@
+"""The training step on one device: gradient accumulation, the frozen LM
+without gradients, the optimizer, eval, caption generation and checkpoints.
+
+Port of the single-device part of ``magma_tpu/training/train_loop.py``
+(reference magma/train_loop.py:7-98, train.py:103-111):
+
+* the Trainer owns the parameters: the frozen ones (the LM outside its
+  adapters, and the image encoder with ``freeze_img_encoder``) get
+  ``requires_grad=False``, so no gradient is computed for the 6B weights;
+* a global batch (ga, micro_batch, ...) is ga forward/backward passes of
+  ``Magma.loss_fn``; with ga > 1 the gradients accumulate in fp32 and are
+  cast back to each parameter's dtype before the optimizer, as the JAX
+  package does (``train_loop.py:139-146``), and the BN state threads from
+  one micro-batch to the next;
+* ``run_blind`` zeroes the images (train_loop.py:13-14); ``eval_step``
+  averages the loss under ``torch.no_grad``; ``inference_step`` captions
+  eval images; ``save``/``load`` keep the JAX checkpoint layout.
+
+Dropout bits come from a ``torch.Generator`` seeded by (seed, step); the
+JAX package's ``jax.random`` bits cannot be reproduced.  The device mesh,
+sharding and the classification steps are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from magma_tpu_torch.config import MultimodalConfig
+from magma_tpu_torch.training.optim import AdamW
+from magma_tpu_torch.utils import tree_items, tree_map
+
+
+class Trainer:
+    """Owns the parameters, the BN state and the optimizer of a ``Magma``."""
+
+    def __init__(self, model, config: MultimodalConfig):
+        self.model = model
+        self.config = config
+        self.device = model.device
+        self.global_step = 0
+        self._mask = model.trainable_mask()
+        self.params = model.params
+        self.state = model.state
+        # the Trainer owns the tensors from here; sync_model() hands them back
+        model.params = model.state = None
+        self.trainable = []
+        for (path, t), (_, m) in zip(tree_items(self.params), tree_items(self._mask)):
+            t.requires_grad_(bool(m))
+            if m:
+                self.trainable.append((path, t))
+        self.optimizer = AdamW(config, self.trainable)
+
+    # ------------------------------------------------------------------
+    def sync_model(self) -> None:
+        """Hand the current params and state back to the ``Magma`` facade
+        (generation, checkpointing through the model's API)."""
+        self.model.params = self.params
+        self.model.state = self.state
+
+    def _batch(self, images, captions):
+        images = torch.as_tensor(np.asarray(images) if not isinstance(images, torch.Tensor)
+                                 else images, device=self.device).float()
+        captions = torch.as_tensor(np.asarray(captions) if not isinstance(captions, torch.Tensor)
+                                   else captions, device=self.device).long()
+        if self.config.run_blind:
+            images = torch.zeros_like(images)
+        return images, captions
+
+    def train_step(self, images, captions, sync: bool = True):
+        """One optimizer step over a global batch laid out as (ga,
+        micro_batch, ...) (a flat (B, ...) batch is split into ga
+        micro-batches).  Returns the mean loss: a float, or with
+        ``sync=False`` a device scalar, so the host does not wait."""
+        ga = self.config.gradient_accumulation_steps
+        images, captions = self._batch(images, captions)
+        if images.dim() == 4:
+            images = images.reshape(ga, -1, *images.shape[1:])
+            captions = captions.reshape(ga, -1, captions.shape[-1])
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.config.seed * 1_000_003 + self.global_step)
+        tensors = [t for _, t in self.trainable]
+        state, n = self.state, images.shape[0]
+        acc = loss_sum = None
+        for i in range(n):
+            loss, (state, _) = self.model.loss_fn(self.params, state, images[i], captions[i],
+                                                  train=True, generator=gen)
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                        materialize_grads=True)
+            if n == 1:  # no fp32 accumulators: the grads are in the params' dtypes
+                acc, loss_sum = list(grads), loss.detach()
+            elif acc is None:
+                acc, loss_sum = [g.float() for g in grads], loss.detach()
+            else:
+                for a, g in zip(acc, grads):
+                    a.add_(g.float())
+                loss_sum = loss_sum + loss.detach()
+            del grads
+        if n > 1:
+            acc = [(a / n).to(t.dtype) for a, t in zip(acc, tensors)]
+            loss_sum = loss_sum / n
+        self.optimizer.step(acc)
+        self.state = tree_map(lambda t: t.detach(), state)
+        self.global_step += 1
+        return float(loss_sum) if sync else loss_sum
+
+    @torch.no_grad()
+    def eval_step(self, eval_loader, eval_steps: Optional[int] = None) -> float:
+        """Mean loss over ``eval_steps`` batches (train_loop.py:48-60)."""
+        n = eval_steps if eval_steps is not None else self.config.eval_steps
+        losses = []
+        for _ in range(n):
+            images, captions = self._batch(*next(eval_loader))
+            loss, _ = self.model.loss_fn(self.params, self.state, images, captions, train=False)
+            losses.append(float(loss))
+        return float(np.mean(losses))
+
+    def inference_step(self, eval_loader, max_images: int = 2,
+                       **generate_kwargs) -> Tuple[np.ndarray, str]:
+        """Captions for eval images (train_loop.py:85-98, done as intended).
+        Returns (images, caption text block)."""
+        images, _ = next(eval_loader)
+        images = np.asarray(images)[:max_images]
+        if self.config.run_blind:
+            images = np.zeros_like(images)
+        self.sync_model()
+        embeddings = self.model.embed([torch.as_tensor(images, device=self.device)])
+        captions = self.model.generate(embeddings, **generate_kwargs)
+        return images, "".join(f"Caption {i}: \n{c}\n" for i, c in enumerate(captions))
+
+    # ------------------------------------------------------------------
+    def save(self, save_dir: str) -> None:
+        from magma_tpu_torch.training import checkpoint as ckpt
+
+        ckpt.save_checkpoint(save_dir, self.global_step, self.params, self.state,
+                             opt_state=self.optimizer.state_dict(), config=self.config)
+
+    def load(self, load_dir: str, load_optimizer: bool = True) -> int:
+        """Resume; returns the restored global step (0 when nothing was
+        found), as utils.py:99-117."""
+        from magma_tpu_torch.training import checkpoint as ckpt
+
+        params, state, opt_state, step = ckpt.load_checkpoint(
+            load_dir, self.params, self.state,
+            self.optimizer.state_dict() if load_optimizer else None)
+        if params is None:
+            return 0
+        with torch.no_grad():
+            for (_, t), (_, r) in zip(tree_items(self.params), tree_items(params)):
+                t.copy_(r)
+        if state is not None:
+            self.state = state
+        if load_optimizer and opt_state is not None:
+            self.optimizer.load_state_dict(opt_state)
+            self.global_step = step
+        return step

@@ -1,7 +1,10 @@
-"""Small shared utilities: the part of ``magma_tpu/utils.py`` the
-caption path uses, without jax."""
+"""Small shared utilities: the part of ``magma_tpu/utils.py`` the caption
+and training paths use, without jax, and the parameter-tree walks that
+the JAX package gets from ``jax.tree_util``."""
 
 from __future__ import annotations
+
+from typing import Any, Callable, Iterator, Tuple
 
 import torch
 
@@ -11,6 +14,12 @@ def is_main() -> bool:
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         return torch.distributed.get_rank() == 0
     return True
+
+
+def print_main(*msg: Any) -> None:
+    """Rank-0-gated print.  Parity: magma/utils.py:21-23."""
+    if is_main():
+        print(*msg)
 
 
 def round_up(x: int, m: int) -> int:
@@ -29,3 +38,50 @@ def to_dtype(name_or_dtype) -> torch.dtype:
     if isinstance(name_or_dtype, torch.dtype):
         return name_or_dtype
     return DTYPES[name_or_dtype]
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees: nested dicts and lists of tensors, as in the JAX package
+# ---------------------------------------------------------------------------
+
+
+def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) pairs in order, the path's keys and list indices joined
+    by "/" as the JAX package joins ``tree_map_with_path`` keys
+    (e.g. "image_prefix/enc/layer1/0/conv1")."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def tree_paths(tree, prefix: str = ""):
+    """A tree of the same structure whose leaves are their "/"-joined paths."""
+    if isinstance(tree, dict):
+        return {k: tree_paths(v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_paths(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return prefix[:-1]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leafwise over trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def count_parameters(params, trainable_mask=None) -> int:
+    """Parameters in a tree; with a boolean mask tree of the same
+    structure, only the trainable ones.  Parity: magma/utils.py:241-245."""
+    leaves = [t for _, t in tree_items(params)]
+    if trainable_mask is None:
+        return sum(t.numel() for t in leaves)
+    mask = [m for _, m in tree_items(trainable_mask)]
+    return sum(t.numel() for t, m in zip(leaves, mask) if m)

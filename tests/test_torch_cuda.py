@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from magma_tpu_torch.ops import quant
 from magma_tpu_torch.ops.flash_attention import (flash_attention_fwd,
                                                  flash_attention_kernel,
                                                  flash_attention_plain)
@@ -683,3 +684,146 @@ def test_gated_lm_decode_runs_through_k8(fmt, dev):
     L = cfg.n_layers
     # the prefill's 40 rows take K5 once a layer; decode never does
     assert got == [steps - 1, 0, 0, L, L + steps - 1]
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: K9a/K9b (csrc/flash_attn_bwd.cu), K10
+# (csrc/int8_matmul_dx.cu)
+# ---------------------------------------------------------------------------
+
+# K9a/K9b against the fp32 plain backward on the same bf16 inputs, O and lse:
+# the kernels round P and dS to bf16 for the tensor cores (2^-9 relative
+# each) and their outputs to bf16, so each gradient is held within 2e-2 of
+# its own largest magnitude (about 5x the 2^-8 a sum of such roundings
+# reaches)
+K9_REL_TOL = 2e-2
+
+BWD_CASES = {
+    "causal_hd256": dict(b=2, s=256, hd=256, kv_len=None, q_offset=0, causal=True),
+    "causal_hd128_blocks": dict(b=1, s=384, hd=128, kv_len=None, q_offset=0, causal=True),
+    "kv_len_masked_row_hd128": dict(b=2, s=200, hd=128, kv_len=[200, 0], q_offset=0,
+                                    causal=True),
+    "kv_len_hd256": dict(b=2, s=256, hd=256, kv_len=[149, 256], q_offset=0, causal=True),
+    "q_offset_hd256": dict(b=1, s=128, hd=256, kv_len=None, q_offset=128, causal=True,
+                           s_k=256),
+    "not_causal_hd128": dict(b=1, s=256, hd=128, kv_len=[100], q_offset=0, causal=False),
+    "train_hd256": dict(b=2, s=2048, hd=256, kv_len=None, q_offset=0, causal=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_backward_kernels_match_plain(case, dev):
+    from magma_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_dkv_kernel,
+                                                     flash_attention_bwd_dq_kernel,
+                                                     flash_attention_bwd_plain)
+
+    c = BWD_CASES[case]
+    s_k = c.get("s_k", c["s"])
+    q, k, v = _qkv(dev, c["b"], c["s"], s_k, c["hd"], seed=3)
+    kv_len = (None if c["kv_len"] is None
+              else torch.tensor(c["kv_len"], dtype=torch.int32, device=dev))
+    kw = dict(scale=c["hd"] ** -0.5, causal=c["causal"], kv_len=kv_len, q_offset=c["q_offset"])
+    o, lse = flash_attention_plain(q, k, v, **kw)
+    do = torch.randn(o.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(4)
+                     ).to(torch.bfloat16)
+    before = (flash_attention_bwd_dkv_kernel.launches, flash_attention_bwd_dq_kernel.launches)
+    got = flash_attention_bwd(q, k, v, o, lse.contiguous(), do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dkv_kernel.launches, flash_attention_bwd_dq_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
+        err = (a.float() - r).abs().max().item()
+        assert err <= K9_REL_TOL * r.abs().max().item() + 1e-6, (name, err)
+    if case == "kv_len_masked_row_hd128":  # the fully masked row's gradients are 0
+        assert not got[0][1].any() and not got[1][1].any() and not got[2][1].any()
+
+
+def test_flash_attention_grad_runs_k9(dev):
+    """torch.autograd through ``flash_attention``: one K1, one K9a, one K9b;
+    q, k, v gradients within the tolerance of the plain einsum path's."""
+    from magma_tpu_torch.ops.attention import xla_attention
+    from magma_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv_kernel,
+                                                     flash_attention_bwd_dq_kernel)
+
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, 2, 200, 200, 256, seed=5))
+    kv_len = torch.tensor([200, 77], dtype=torch.int32, device=dev)
+    g = torch.randn((2, 200, 4, 256), device=dev).to(torch.bfloat16)
+    before = [f.launches for f in (flash_attention_kernel, flash_attention_bwd_dkv_kernel,
+                                   flash_attention_bwd_dq_kernel)]
+    o = flash_attention(q, k, v, scale=1 / 16, kv_len=kv_len)
+    got = torch.autograd.grad(o, (q, k, v), g)
+    after = [f.launches for f in (flash_attention_kernel, flash_attention_bwd_dkv_kernel,
+                                  flash_attention_bwd_dq_kernel)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    ref = torch.autograd.grad(xla_attention(qf, kf, vf, scale=1 / 16, kv_len=kv_len).float(),
+                              (qf, kf, vf), g.float())
+    for a, r in zip(got, ref):
+        assert (a.float() - r).abs().max().item() <= K9_REL_TOL * r.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(5, 256, 384), (192, 512, 1024), (2048, 4096, 4096),
+                                   (256, 4096, 50304)],
+                         ids=["small", "m192", "qlora_o", "qlora_head"])
+def test_int8_dx_kernel_matches_plain(shape, dev):
+    m, k, n = shape
+    g = torch.Generator(device=dev).manual_seed(6)
+    grad = torch.randn((m, n), generator=g, device=dev)
+    wq = torch.randint(-127, 128, (2, k, n), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand((2, n), generator=g, device=dev) * 1e-3 + 1e-4
+    before = quant.int8_matmul_dx_kernel.launches
+    dx = quant.int8_matmul_dx_kernel(grad, wq[1], s[1])
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_dx_kernel.launches == before + 1
+    ref = quant.int8_matmul_dx_plain(grad, wq[1], s[1])
+    gs = (grad * s[1]).to(torch.bfloat16)
+    # products of bf16 values are exact in fp32: only the summation order differs
+    tol = 2 * n * 2.0 ** -24 * (gs.float().abs() @ wq[1].float().abs().T) + 1e-30
+    assert ((dx - ref).abs() <= tol).all()
+
+
+def test_int8_matmul_grad_runs_k10(dev):
+    """autograd through int8_matmul_stacked and int8_matmul: K2b/K2a forward,
+    K10 backward, no gradient for the weights or scales."""
+    x, wq, s = _int8_inputs(dev, 37, 512, 384)
+    x = x.requires_grad_()
+    before = quant.int8_matmul_dx_kernel.launches
+    y = quant.int8_matmul_stacked(x, wq, s, 1, out_dtype=torch.bfloat16)
+    y2 = quant.int8_matmul(x, wq[0], s[0])
+    g1 = torch.randn_like(y)
+    (gx,) = torch.autograd.grad((y.float() * g1.float()).sum() + y2.sum(), (x,))
+    assert quant.int8_matmul_dx_kernel.launches == before + 2
+    assert gx.dtype == torch.bfloat16 and not wq.requires_grad and wq.grad is None
+    terms = [(g1.float(), wq[1], s[1]), (torch.ones((37, 384), device=dev), wq[0], s[0])]
+    r1, r2 = (quant.int8_matmul_dx_plain(*t) for t in terms)
+    # gx = bf16(bf16(dx1) + bf16(dx2)): autograd rounds each product's dx to
+    # x's dtype and sums the two in it.  Each of the three roundings is within
+    # 2^-8 of its value; the kernel's fp32 summation order adds up to
+    # 2 n 2^-24 (|g s| @ |W|^T) to each dx before they round.
+    order = sum(2 * 384 * 2.0 ** -24 * ((gg * ss).to(torch.bfloat16).float().abs()
+                                        @ w.float().abs().T) for gg, w, ss in terms)
+    tol = 2.0 ** -8 * (1 + 2.0 ** -8) * (r1.abs() + r2.abs() + (r1 + r2).abs()) + 2 * order
+    assert ((gx.float() - (r1 + r2)).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("bad", ["bf16_g", "k_not_128", "cpu_w", "wrong_n"])
+def test_training_wrappers_raise_on_what_they_do_not_take(bad, dev):
+    g = torch.randn((4, 256), device=dev)
+    wq = torch.zeros((256, 256), dtype=torch.int8, device=dev)
+    s = torch.ones((256,), device=dev)
+    if bad == "bf16_g":
+        g = g.to(torch.bfloat16)
+    elif bad == "k_not_128":
+        wq = torch.zeros((200, 256), dtype=torch.int8, device=dev)
+    elif bad == "cpu_w":
+        wq = wq.cpu()
+    else:
+        g = torch.randn((4, 384), device=dev)
+    before = quant.int8_matmul_dx_kernel.launches
+    with pytest.raises((TypeError, ValueError)):
+        quant.int8_matmul_dx_kernel(g, wq, s)
+    assert quant.int8_matmul_dx_kernel.launches == before

@@ -21,6 +21,8 @@ def test_imports_with_jax_blocked():
         "import magma_tpu_torch.ops.flash_attention, magma_tpu_torch.cuda_build\n"
         "import magma_tpu_torch.ops.quant, magma_tpu_torch.models.gptj\n"
         "import magma_tpu_torch.ops.decode_layer\n"
+        "import magma_tpu_torch.training\n"
+        "import magma_tpu_torch.training.train_loop, magma_tpu_torch.training.checkpoint\n"
         "assert not [m for m in sys.modules if m == 'magma_tpu' or m.startswith('magma_tpu.')]\n"
         "print('ok')\n"
     )
@@ -37,7 +39,7 @@ def test_no_jax_import_in_the_source():
             for p in sources for m in pat.finditer(p.read_text())]
     assert not hits, hits
     for kernel in ("flash_attn_fwd.cu", "int8_matmul.cu", "fused_adapter.cu", "int4_matmul.cu",
-                   "boundary.cu", "decode_layer.cu"):
+                   "boundary.cu", "decode_layer.cu", "flash_attn_bwd.cu", "int8_matmul_dx.cu"):
         assert (PORT / "csrc" / kernel).exists()
 
 
