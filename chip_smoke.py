@@ -15,10 +15,12 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    ``scaled_dot_product_attention`` call with the same boolean mask timed
    (median of CUDA events).
 2b. The int8 kernels against their plain versions on seeded bf16/int8
-   inputs at the slice's shapes: K2b (in_proj) at M = 1, 5, 37, 192, K4a
-   (o_proj + fc_out) at M = 1, 192, K5 (the adapter) at M = 1, 64, K2a
-   (the head) at M = 1; each timed with its plain version and a bf16
-   ``torch.matmul`` over weights dequantised outside the timed call.
+   inputs at the slice's shapes: K2b (in_proj) at M = 1, 5, 37, 192, 256,
+   2048 and on the QLoRA layout's o and fc_out at M = 2048, K4a (o_proj +
+   fc_out) at M = 1, 192, K5 (the adapter) at M = 1, 64, K2a (the head) at
+   M = 1 and at path B's 256-position loss chunk; each timed with its plain
+   version and a bf16 ``torch.matmul`` over weights dequantised outside
+   the timed call, and every M > 8 result the same bits on a repeat.
    Timed calls cycle through the layers of a stack larger than the 50 MB
    L2, as decode reads each layer's weights once per token.
 3. The bf16 caption path at full width: ``Magma`` from configs/MAGMA_v1.yml
@@ -76,7 +78,8 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    backward) at (b 2, s 2048, h 16, hd 256, causal) and at a padded
    kv_len case of hd 128, each gradient within 2e-2 of its largest
    magnitude; K10 (the int8 input gradient) at M = 2048 on the in_proj,
-   o, fc_out and head shapes, within the fp32 summation bound.  Each timed
+   o, fc_out and head shapes and at the head's M = 256 loss chunk, within
+   the fp32 summation bound and the same bits on a repeat.  Each timed
    with its plain version, its bound and one library call (the backward of
    ``scaled_dot_product_attention(is_causal=True)``; a bf16 matmul of g s
    against weights dequantised before timing).
@@ -455,24 +458,47 @@ def phase_int8_kernels(torch):
     L = 4
     wq, s = int8(L, D, N_IN), scales(L, N_IN)
     w_lib = [deq(wq[i], s[i]) for i in range(L)]
-    for m in (1, 5, 37, 192):
+    for m in (1, 5, 37, 192, 256, 2048):
         x = bf16(m, D)
         out = quant.int8_matmul_stacked(x, wq, s, 1)
         ref = quant.int8_matmul_stacked_plain(x, wq, s, 1)
         torch.cuda.synchronize()
         err = (out - ref).abs()
+        check(torch.equal(out, quant.int8_matmul_stacked(x, wq, s, 1)),
+              f"K2b in_proj M={m}: another result on a repeat")
         tm = None
-        if m in (1, 192):
+        if m in (1, 192, 2048):
             it = itertools.cycle(range(L))
             tm = timing("K2b in_proj", m, lambda: quant.int8_matmul_stacked(x, wq, s, next(it)),
                         lambda: quant.int8_matmul_stacked_plain(x, wq, s, next(it)),
                         lambda: torch.matmul(x, w_lib[next(it)]),
                         nbytes(x, wq[0], s[0]) + m * N_IN * 4, 2 * m * D * N_IN,
-                        "gemv_kernel" if m <= 8 else "mma_kernel")
-        # the JSON line carries decode's (M=1) numbers; the log has M=192's
+                        "gemv_kernel" if m <= 8 else "int8_wgmma_tile_kernel")
+        # the JSON line carries decode's (M=1) numbers; the log has the others
         report("int8_matmul_stacked_kernel", "K2b in_proj", m, err.max().item(),
                bool((err <= _sum_tol(x, wq[1], s[1], D)).all()), tm if m == 1 else None)
     del wq, s, w_lib
+
+    # K2b at path B's M = 2048 on the QLoRA layout's o and fc_out (each its
+    # own stacked product there), 4 and 2 layers cycled
+    for label, (k_, layers) in (("o", (D, 4)), ("fc_out", (F_, 2))):
+        wq, s = int8(layers, k_, D), scales(layers, D)
+        w_lib = [deq(wq[i], s[i]) for i in range(layers)]
+        x = bf16(2048, k_)
+        out = quant.int8_matmul_stacked(x, wq, s, 1)
+        ref = quant.int8_matmul_stacked_plain(x, wq, s, 1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        check(torch.equal(out, quant.int8_matmul_stacked(x, wq, s, 1)),
+              f"K2b {label} M=2048: another result on a repeat")
+        it = itertools.cycle(range(layers))
+        timing(f"K2b {label}", 2048, lambda: quant.int8_matmul_stacked(x, wq, s, next(it)),
+               lambda: quant.int8_matmul_stacked_plain(x, wq, s, next(it)),
+               lambda: torch.matmul(x, w_lib[next(it)]),
+               nbytes(x, wq[0], s[0]) + 2048 * D * 4, 2 * 2048 * k_ * D, "int8_wgmma_tile_kernel")
+        report("int8_matmul_stacked_kernel", f"K2b {label}", 2048, err.max().item(),
+               bool((err <= _sum_tol(x, wq[1], s[1], k_)).all()))
+        del wq, s, w_lib
 
     # K4a: o_proj + fc_out, 4 layers (335 MB) cycled
     wq, s = int8(L, D + F_, D), scales(L, 2, D)
@@ -496,7 +522,10 @@ def phase_int8_kernels(torch):
         tm = timing("K4a out_proj", m, lambda: quant.dual_matmul_stacked(ctx, h, w, next(it)),
                     lambda: quant.dual_matmul_stacked_plain(ctx, h, w, next(it)), library,
                     nbytes(ctx, h, wq[0], s[0]) + 2 * m * D * 4, 2 * m * (D + F_) * D,
-                    "gemv_kernel" if m <= 8 else "mma_kernel")
+                    "gemv_kernel" if m <= 8 else "int8_wgmma_tile_kernel")
+        a2, mo2 = quant.dual_matmul_stacked(ctx, h, w, 2)
+        check(torch.equal(a, a2) and torch.equal(mo, mo2),
+              f"K4a M={m}: another result on a repeat")
         report("dual_matmul_kernel", "K4a out_proj", m, max(ea.max().item(), em.max().item()),
                ok, tm if m == 1 else None)
     del wq, s, lib_o, lib_f
@@ -535,18 +564,23 @@ def phase_int8_kernels(torch):
                tm if m == 1 else None)
     del fz, lib_d, lib_u, lib_b
 
-    # K2a: the untied head, decode's M=1; 206 MB, larger than L2 by itself
+    # K2a: the untied head, decode's M=1 and path B's 256-position loss
+    # chunk; 206 MB, larger than L2 by itself
     wq, s = int8(D, V), scales(V)
     w_lib = deq(wq, s)
-    x = bf16(1, D)
-    out, ref = quant.int8_matmul(x, wq, s), quant.int8_matmul_plain(x, wq, s)
-    torch.cuda.synchronize()
-    err = (out - ref).abs()
-    tm = timing("K2a head", 1, lambda: quant.int8_matmul(x, wq, s),
-                lambda: quant.int8_matmul_plain(x, wq, s), lambda: torch.matmul(x, w_lib),
-                nbytes(x, wq, s) + V * 4, 2 * D * V, "gemv_kernel")
-    report("int8_matmul_kernel", "K2a head", 1, err.max().item(),
-           bool((err <= _sum_tol(x, wq, s, D)).all()), tm)
+    for m in (1, 256):
+        x = bf16(m, D)
+        out, ref = quant.int8_matmul(x, wq, s), quant.int8_matmul_plain(x, wq, s)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        check(torch.equal(out, quant.int8_matmul(x, wq, s)),
+              f"K2a M={m}: another result on a repeat")
+        tm = timing("K2a head", m, lambda: quant.int8_matmul(x, wq, s),
+                    lambda: quant.int8_matmul_plain(x, wq, s), lambda: torch.matmul(x, w_lib),
+                    nbytes(x, wq, s) + m * V * 4, 2 * m * D * V,
+                    "gemv_kernel" if m <= 8 else "int8_wgmma_tile_kernel")
+        report("int8_matmul_kernel", "K2a head", m, err.max().item(),
+               bool((err <= _sum_tol(x, wq, s, D)).all()), tm if m == 1 else None)
     for wrapper, (name, replaces) in INT8_KERNELS.items():
         entries[wrapper].update(name=name, route="cuda", replaces=replaces, source=(
             "magma_tpu_torch/csrc/fused_adapter.cu" if name == "fused_adapter"
@@ -1725,9 +1759,10 @@ def phase_train_kernels(torch):
     del q, k, v, do, o, lse
 
     # K10: path B's M = b s = 2048 on every int8 product of a layer and the head
-    D, F_, V, M = 4096, 16384, 50304, 2048
-    for label, (k_, n_) in (("in_proj", (D, 3 * D + F_)), ("o", (D, D)), ("fc_out", (F_, D)),
-                            ("head", (D, V))):
+    D, F_, V = 4096, 16384, 50304
+    for label, (M, k_, n_) in (("in_proj", (2048, D, 3 * D + F_)), ("o", (2048, D, D)),
+                               ("fc_out", (2048, F_, D)), ("head", (2048, D, V)),
+                               ("head chunk", (256, D, V))):
         wq = torch.randint(-127, 128, (k_, n_), generator=g, device=dev, dtype=torch.int8)
         sc = torch.rand((n_,), generator=g, device=dev) * 2e-4 + 1e-5
         grad = torch.randn((M, n_), generator=g, device=dev) * 1e-3
@@ -1737,18 +1772,18 @@ def phase_train_kernels(torch):
         tol = 2 * n_ * 2.0 ** -24 * (gs.abs() @ wq.float().abs().T)
         torch.cuda.synchronize()
         err = (dx - ref).abs()
-        ok = bool((err <= tol).all())
+        ok = bool((err <= tol).all()) and torch.equal(dx, quant.int8_matmul_dx_kernel(grad, wq, sc))
         del gs, tol
         w_lib = (wq.float() * sc).to(torch.bfloat16).T.contiguous()  # dequantised before timing
         g16 = grad.to(torch.bfloat16)
         tm = _timing(torch, f"K10 {label}", M, lambda: quant.int8_matmul_dx_kernel(grad, wq, sc),
                      lambda: quant.int8_matmul_dx_plain(grad, wq, sc),
                      lambda: torch.matmul(g16, w_lib),
-                     nbytes(grad, wq, sc) + M * k_ * 4, 2 * M * n_ * k_, "int8_dx_kernel",
+                     nbytes(grad, wq, sc) + M * k_ * 4, 2 * M * n_ * k_, "int8_dx_wgmma_kernel",
                      library_is="bf16 torch.matmul of g against W s dequantised before timing",
                      plain_iters=5)
         print(f"[K10 {label}] M={M} K={k_} N={n_}: max|kernel-plain| {err.max().item():.3e}, "
-              f"within the fp32 summation bound: {ok}")
+              f"within the fp32 summation bound and the same on a repeat: {ok}")
         check(ok, f"K10 {label}: kernel differs from its plain version by {err.max().item()}")
         e = entries["int8_matmul_dx_kernel"]
         e["max_abs_err"] = max(e["max_abs_err"], err.max().item())

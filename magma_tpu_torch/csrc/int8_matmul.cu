@@ -38,18 +38,41 @@
 //       pass: the result is the same bits from run to run, and greedy tokens
 //       repeat.  The segment with more rows goes first, so its blocks are
 //       dispatched first.
-//   M > 8: mma.sync m16n8k16 bf16 tiles, 64 x 128 per block of 4 warps,
-//       K steps of 32.  x arrives by cp.async; W is read as int8, converted
-//       to bf16 while it is staged in shared memory, and fed by ldmatrix.trans
-//       as the B operand, so device memory only ever sees int8 weights.  Rows
-//       past M are zero-filled and never stored.  No pipelining, no wgmma or
-//       TMA yet: those come when this kernel is made fast.
+//   M > 8: wgmma tiles with the operands swapped, out^T = W^T x^T, so that
+//       the int8 weights are wgmma's register-sourced A (rather than
+//       converter warps writing a bf16 copy of the W tile to shared memory:
+//       the widening then costs no shared-memory round trip and no proxy
+//       fence, and runs beside the other warpgroup's wgmma): each consumer
+//       thread reads its A pairs from the stage's int8 W box (two
+//       neighbouring columns of a row with one 16-bit load: A's row g is
+//       column 2g of the warp's 16, row g + 8 column 2g + 1) and widens them
+//       in registers (exactly, two codes in four instructions), and x in
+//       bf16 is B straight from the TMA box, whose N is the tile's rows
+//       (64, 128, 192 or 256; ragged M pads with zero rows, never stored).
+//       At M = 192 one block holds all rows, so each W tile streams from
+//       HBM once; at M = 2048 the m tile runs fastest in the grid, so the
+//       blocks in flight share their W tiles out of L2.  A block is a
+//       producer warpgroup (one thread issuing TMA into a ring of 4-8
+//       stages of 64 k, mbarrier full/empty pairs) and two consumer
+//       warpgroups of 64 output columns each, fp32 accumulators in
+//       registers.  Per 64-k stage a block reads 8 KB of W and BM x 128
+//       bytes of x for 2 x 128 x BM x 64 flops (about 0.01 bytes a flop out
+//       of L2).  With fewer tiles than SMs (K4a at M = 192: 32 column tiles
+//       a segment) K is split in 4 over a cluster -- fc_out's parts are
+//       then as long as o_proj's whole K, and fc_out's blocks go first -- and
+//       the parts meet through distributed shared memory, each rank adding
+//       a quarter of the entries in rank order: no float atomics, the same
+//       bits from run to run.  The epilogue multiplies each column by its
+//       scale on the fp32 sum and stores fp32.
 //
 // Measured alone (torch.profiler, chip_smoke.py, NVIDIA H100 80GB HBM3 at a
-// 700 W power limit): K2b 69.5 us at M=1 (51% of its bound) and 427 us at
-// M=192 (11%), K4a 54.7 us at M=1 (46%; 65.4-66.6 us without the split of
-// K, same run) and 742 us, K2a 117 us (53%).  The GEMV reads ~50% of HBM
-// bandwidth; the M > 8 tiles are latency-bound on the serial k loop.
+// 700 W power limit): at M = 1 the GEMV as before (K2b 69.4 us, 51% of its
+// bound; K4a 55.4 us; K2a 117 us); the tiles K2b M=192 90.7 us (50%; the
+// mma.sync tile they replace: 437 us in scripts/torch_int8_tiles_ab.py),
+// K4a M=192 107 us (30%), K2b M=2048 727 us in_proj (67%), 107 us o, 386
+// us fc_out (72%), K2a M=256 164 us (65%).  What holds the tiles back: each stage moves about 0.01 bytes a
+// flop out of L2, and the consumers' A widening is not overlapped with
+// their own wgmma (the other warpgroup's fills the tensor cores).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -57,8 +80,9 @@
 #include <stdint.h>
 
 #include "int8_gemv.cuh"
+#include "tma_wgmma.cuh"
 
-namespace cg = cooperative_groups;
+using namespace tma_wgmma;
 
 namespace {
 
@@ -145,166 +169,215 @@ cudaError_t launch_gemv(const Params& p, int nseg, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// M > 8: mma.sync tiles
+// M > 8: wgmma tiles, operands swapped (out^T = W^T x^T)
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64, BN = 128, BK = 32;
-constexpr int MMA_THREADS = 128;  // 2 x 2 warps of 32 x 64
-constexpr int LDA = BK + 8;       // bf16 per shared row: staggers ldmatrix banks
-constexpr int LDB = BN + 8;
+constexpr int ALIGN = 128;          // K and N multiples of this
+constexpr int TILE_N = 128;         // output columns per block: 2 consumer warpgroups x 64
+constexpr int TILE_K = 64;          // k per stage: one 128-byte swizzle row of bf16 x
+constexpr int TILE_THREADS = 384;   // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMERS = 256;
+constexpr int W_BYTES = TILE_K * TILE_N;  // the int8 W box of a stage
+constexpr int MAX_SPLIT = 4;        // K parts, one block each, of one cluster
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+// BM output rows per block = wgmma's N; the ring holds as many stages as fit
+// beside the other block-sized pieces (the partial sums of a split reuse it)
+template <int BM>
+struct TileCfg {
+  static constexpr int STAGES = BM <= 64 ? 8 : BM <= 128 ? 6 : BM <= 192 ? 5 : 4;
+  static constexpr int STAGE_BYTES = W_BYTES + BM * TILE_K * 2;
+  static constexpr int ACC = BM / 2;  // fp32 accumulators a consumer thread holds
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+  static_assert(ACC * CONSUMERS * 4 <= STAGES * STAGE_BYTES, "partials reuse the ring");
+};
+
+struct TileParams {
+  CUtensorMap x[2];  // (M, K_i) bf16, boxes of BM rows x 64 k, 128-byte swizzle
+  CUtensorMap w[2];  // (K_i, N) int8, boxes of 64 k x 128 columns, 128-byte swizzle
+  const float* s[2];
+  float* out[2];
+  int k[2];
+  int m, n, split;
+};
+
+// the two bytes W[k][c], W[k][c + 1] of a stage's 128-byte-swizzled W box
+__device__ __forceinline__ uint32_t w_pair(const uint8_t* w, int k, int c) {
+  return *reinterpret_cast<const uint16_t*>(w + k * TILE_N + (((c >> 4) ^ (k & 7)) << 4) +
+                                            (c & 15));
 }
 
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
+// bytes (W[k][c], W[k][c+1], W[k+1][c], W[k+1][c+1]) -> the bf16x2 A
+// registers of column c (k, k+1) and of column c + 1 (k, k+1); exact
+__device__ __forceinline__ void widen_a(uint32_t v, uint32_t& col0, uint32_t& col1) {
+  col0 = s8x2_to_bf16x2(v);
+  col1 = s8x2_to_bf16x2(v >> 8);
 }
 
-__device__ __forceinline__ void cp_async_commit_and_wait() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(ptr)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(ptr)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__global__ void __launch_bounds__(MMA_THREADS) mma_kernel(const Params p) {
-  const Segment sg = p.seg[blockIdx.z];
-  __shared__ __align__(16) __nv_bfloat16 sA[BM * LDA];
-  __shared__ __align__(16) __nv_bfloat16 sB[BK * LDB];
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;  // 32-row half of the tile
-  const int wn = warp & 1;   // 64-column half
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int k0 = 0; k0 < sg.k; k0 += BK) {
-    // A: 64 rows x 32 bf16 = 4 chunks of 16 B a row
-    for (int i = tid; i < BM * (BK / 8); i += MMA_THREADS) {
-      const int r = i / (BK / 8);
-      const int c = (i % (BK / 8)) * 8;
-      const bool valid = m0 + r < p.m;
-      const __nv_bfloat16* src = valid ? sg.x + (long long)(m0 + r) * sg.ldx + k0 + c : sg.x;
-      cp_async_16(sA + r * LDA + c, src, valid);
+// Block (m tile, n tile, segment x split part).  Warpgroup 0: one thread
+// keeps the ring full with TMA.  Warpgroups 1-2: each owns 64 columns of W
+// as wgmma's A rows -- thread row g is column 2g of its warp's 16, row g + 8
+// column 2g + 1, so each thread reads two neighbouring bytes per k -- widened
+// in registers, and x's rows as B (N = BM) straight from the TMA box.
+template <int BM>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    int8_wgmma_tile_kernel(const __grid_constant__ TileParams p) {
+  using C = TileCfg<BM>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE_BYTES);
+  uint64_t* empty = full + C::STAGES;
+  const int split = p.split;
+  const int seg = blockIdx.z / split;
+  const int part = blockIdx.z % split;  // = the block's rank in its cluster
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * TILE_N;
+  const int steps = p.k[seg] / TILE_K;
+  const int t0 = part * steps / split;
+  const int t1 = (part + 1) * steps / split;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS);
     }
-    // B: 32 rows x 128 int8 = 8 chunks of 16 B a row, converted to bf16
-    for (int i = tid; i < BK * (BN / 16); i += MMA_THREADS) {
-      const int r = i / (BN / 16);
-      const int c = (i % (BN / 16)) * 16;
-      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(sg.w + (long long)(k0 + r) * p.n + n0 + c));
-      float f[16];
-      s8x4_to_f32(wv.x, f);
-      s8x4_to_f32(wv.y, f + 4);
-      s8x4_to_f32(wv.z, f + 8);
-      s8x4_to_f32(wv.w, f + 12);
-      uint4 lo, hi;
-      lo.x = pack_bf16x2(f[0], f[1]);
-      lo.y = pack_bf16x2(f[2], f[3]);
-      lo.z = pack_bf16x2(f[4], f[5]);
-      lo.w = pack_bf16x2(f[6], f[7]);
-      hi.x = pack_bf16x2(f[8], f[9]);
-      hi.y = pack_bf16x2(f[10], f[11]);
-      hi.z = pack_bf16x2(f[12], f[13]);
-      hi.w = pack_bf16x2(f[14], f[15]);
-      *reinterpret_cast<uint4*>(sB + r * LDB + c) = lo;
-      *reinterpret_cast<uint4*>(sB + r * LDB + c + 8) = hi;
-    }
-    cp_async_commit_and_wait();
-    __syncthreads();
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        ldmatrix_x4(a[mi], sA + (wm * 32 + mi * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDA +
-                               kk + (lane / 16) * 8);
+  if (threadIdx.x < 128) {  // producer warpgroup
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int t = t0; t < t1; ++t) {
+        const int u = t - t0, st = u % C::STAGES;
+        if (u >= C::STAGES) mbar_wait(&empty[st], ((u / C::STAGES) & 1) ^ 1);
+        uint8_t* stage = smem + st * C::STAGE_BYTES;
+        mbar_expect_tx(&full[st], C::STAGE_BYTES);
+        tma_load_2d(stage, &p.w[seg], &full[st], n0, t * TILE_K);
+        tma_load_2d(stage + W_BYTES, &p.x[seg], &full[st], t * TILE_K, m0);
       }
+    }
+    if (split > 1) {
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {  // consumer warpgroups
+    regs_inc<232>();
+    const int ctid = threadIdx.x - 128;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int col = (ctid >> 7) * 64 + ((ctid >> 5) & 3) * 16 + 2 * g;  // and col + 1
+    float acc[C::ACC];
 #pragma unroll
-      for (int nj = 0; nj < 8; nj += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sB + (kk + (lane % 8) + ((lane / 8) % 2) * 8) * LDB + wn * 64 +
-                                 nj * 8 + (lane / 16) * 8);
+    for (int i = 0; i < C::ACC; ++i) acc[i] = 0.f;
+
+    for (int t = t0; t < t1; ++t) {
+      const int u = t - t0, st = u % C::STAGES;
+      mbar_wait(&full[st], (u / C::STAGES) & 1);
+      const uint8_t* stage = smem + st * C::STAGE_BYTES;
+      uint32_t a[4][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_16816(acc[mi][nj], a[mi], b[0], b[1]);
-          mma_16816(acc[mi][nj + 1], a[mi], b[2], b[3]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = kk * 16 + 2 * tq;
+        widen_a(w_pair(stage, k, col) | (w_pair(stage, k + 1, col) << 16), a[kk][0], a[kk][1]);
+        widen_a(w_pair(stage, k + 8, col) | (w_pair(stage, k + 9, col) << 16), a[kk][2],
+                a[kk][3]);
+      }
+      wgmma_fence();
+      fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        Wgmma<BM>::rs(acc, a[kk], sw128_desc(stage + W_BYTES + kk * 32));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(&empty[st]);
+    }
+
+    const float* scale = p.s[seg];
+    float* out = p.out[seg];
+    const int c = n0 + col;
+    if (split == 1) {
+      const float s0 = scale[c], s1 = scale[c + 1];
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const int m = m0 + 8 * j + 2 * tq;
+        if (m < p.m) {
+          *reinterpret_cast<float2*>(out + (long long)m * p.n + c) =
+              make_float2(acc[4 * j] * s0, acc[4 * j + 2] * s1);
+        }
+        if (m + 1 < p.m) {
+          *reinterpret_cast<float2*>(out + (long long)(m + 1) * p.n + c) =
+              make_float2(acc[4 * j + 1] * s0, acc[4 * j + 3] * s1);
         }
       }
+    } else {
+      cluster_reduce<CONSUMERS>(acc, reinterpret_cast<float*>(smem), ctid, part, split,
+                                [&](int i, float v) {
+                                  const int m = m0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+                                  const int cc = c + ((i >> 1) & 1);
+                                  if (m < p.m) out[(long long)m * p.n + cc] = v * scale[cc];
+                                });
     }
-    __syncthreads();  // the tiles are read before the next step overwrites them
   }
+}
 
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int nj = 0; nj < 8; ++nj) {
-      const int col = n0 + wn * 64 + nj * 8 + tig * 2;
-      const float s0 = sg.s[col];
-      const float s1 = sg.s[col + 1];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = m0 + wm * 32 + mi * 16 + gid + 8 * r;
-        if (row < p.m) {
-          *reinterpret_cast<float2*>(sg.out + (long long)row * p.n + col) =
-              make_float2(acc[mi][nj][2 * r] * s0, acc[mi][nj][2 * r + 1] * s1);
-        }
-      }
+template <int BM>
+cudaError_t launch_tiles(const Params& p, int nseg, cudaStream_t st) {
+  using C = TileCfg<BM>;
+  TileParams tp;
+  for (int i = 0; i < nseg; ++i) {
+    const Segment& sg = p.seg[i];
+    if (!encode_2d(&tp.x[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sg.x, p.m, sg.k, sg.ldx * 2, BM,
+                   TILE_K, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !encode_2d(&tp.w[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, sg.w, sg.k, p.n, p.n, TILE_K, TILE_N,
+                   CU_TENSOR_MAP_SWIZZLE_128B)) {
+      return cudaErrorInvalidValue;
     }
+    tp.s[i] = sg.s;
+    tp.out[i] = sg.out;
+    tp.k[i] = sg.k;
   }
+  tp.m = p.m;
+  tp.n = p.n;
+  const int m_tiles = (p.m + BM - 1) / BM;
+  const int tiles = m_tiles * (p.n / TILE_N) * nseg;
+  // fewer tiles than SMs: split K over a cluster (K4a's o_proj and fc_out
+  // parts are then a quarter of each segment, and the longer segment's
+  // blocks go first)
+  tp.split = tiles < sm_count() ? MAX_SPLIT : 1;
+  // once per process: a host call less on every launch
+  static const cudaError_t smem_ok = cudaFuncSetAttribute(
+      int8_wgmma_tile_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (smem_ok != cudaSuccess) return smem_ok;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(m_tiles, p.n / TILE_N, nseg * tp.split);
+  cfg.blockDim = dim3(TILE_THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = tp.split;
+  cfg.attrs = attr;
+  cfg.numAttrs = tp.split > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, int8_wgmma_tile_kernel<BM>, tp);
 }
 
 }  // namespace
 
 // C entry for ctypes.  nseg (1 or 2) segments of width n, each x (m, k_i)
 // bf16 with row stride ldx_i (a multiple of 8, 16-byte aligned), w (k_i, n)
-// int8 contiguous, s (n,) fp32, out (m, n) fp32; k_i and n multiples of 128.
-// Returns a cudaError_t (0 on success).
+// int8 contiguous (16-byte aligned), s (n,) fp32, out (m, n) fp32; k_i and n
+// multiples of 128.  Returns a cudaError_t (0 on success).
 extern "C" int magma_int8_matmul(int nseg, int m, int n,
                                  const void* x0, long long ldx0, const void* w0,
                                  const float* s0, float* out0, int k0,
                                  const void* x1, long long ldx1, const void* w1,
                                  const float* s1, float* out1, int k1, void* stream) {
-  // k_i % BN also makes each of the GEMV_SPLIT parts of K a whole number of rows
-  if (nseg < 1 || nseg > 2 || m <= 0 || n <= 0 || n % BN || k0 % BN ||
-      (nseg == 2 && k1 % BN)) {
+  // k_i % ALIGN also makes each of the GEMV_SPLIT parts of K a whole number of rows
+  if (nseg < 1 || nseg > 2 || m <= 0 || n <= 0 || n % ALIGN || k0 % ALIGN ||
+      (nseg == 2 && k1 % ALIGN)) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -322,16 +395,15 @@ extern "C" int magma_int8_matmul(int nseg, int m, int n,
     p.seg[0] = first;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 8) {
-    cudaError_t err;
-    if (m == 1) err = launch_gemv<1>(p, nseg, st);
-    else if (m == 2) err = launch_gemv<2>(p, nseg, st);
-    else if (m <= 4) err = launch_gemv<4>(p, nseg, st);
-    else err = launch_gemv<8>(p, nseg, st);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    const dim3 grid(n / BN, (m + BM - 1) / BM, nseg);
-    mma_kernel<<<grid, MMA_THREADS, 0, st>>>(p);
-  }
+  cudaError_t err;
+  if (m == 1) err = launch_gemv<1>(p, nseg, st);
+  else if (m == 2) err = launch_gemv<2>(p, nseg, st);
+  else if (m <= 4) err = launch_gemv<4>(p, nseg, st);
+  else if (m <= 8) err = launch_gemv<8>(p, nseg, st);
+  else if (m <= 64) err = launch_tiles<64>(p, nseg, st);
+  else if (m <= 128) err = launch_tiles<128>(p, nseg, st);
+  else if (m <= 192) err = launch_tiles<192>(p, nseg, st);
+  else err = launch_tiles<256>(p, nseg, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -642,9 +642,11 @@ def forward(
     cdt = cfg.compute_dtype
     x = inputs_embeds.to(cdt)
     dev = x.device
-    if positions is None:
-        start = torch.as_tensor(0 if cache_index is None else cache_index, device=dev)
-        positions = (start.reshape(-1, 1) + torch.arange(s, device=dev)).expand(b, s)
+    if positions is None:  # without a cache, no host scalar is copied to the card
+        positions = torch.arange(s, device=dev).expand(b, s)
+        if cache_index is not None:
+            start = torch.as_tensor(cache_index, device=dev)
+            positions = (start.reshape(-1, 1) + positions).expand(b, s)
     sin, cos = rotary_sincos(positions, cfg.rotary_dim)
 
     blocks = params["blocks"]

@@ -386,6 +386,8 @@ def int8_matmul_dx_kernel(g: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) ->
     if wq.dim() != 2:
         raise ValueError(f"w must be (K, N), got {tuple(wq.shape)}")
     n = _check_weight("w", wq, s, wq.shape[0], g.device)
+    if s.data_ptr() % 16:  # the kernel copies the scales with 16-byte bulk copies
+        raise ValueError("w scales must have a 16-byte aligned base")
     if g.shape[1] != n:
         raise ValueError(f"g has {g.shape[1]} columns, w has N = {n}")
     m, k = g.shape[0], wq.shape[0]

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List
 
-import numpy as np
 import torch
 
 from magma_tpu_torch.config import MultimodalConfig
@@ -34,31 +33,44 @@ EPS = 1e-8
 MAX_CONSECUTIVE_ERRORS = 10
 
 
-def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
-    """``optax.linear_schedule``: fp32 (init - end) (1 - count / steps) + end."""
-    def f(count: int) -> float:
-        c = np.float32(min(max(count, 0), steps))
-        frac = np.float32(1) - c / np.float32(steps)
-        return float(np.float32(init - end) * frac + np.float32(end))
+def _f32(value: float, device) -> torch.Tensor:
+    """An fp32 scalar on ``device``, made by a fill (no copy from the host,
+    so no wait for the card)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def _linear(init: float, end: float, steps: int) -> Callable:
+    """``optax.linear_schedule`` on a count tensor: fp32 clamp(count, 0,
+    steps), 1 - c / steps (a true division: a divisor that is a CPU scalar
+    becomes a product with its reciprocal on the card), (init - end) frac +
+    end -> an fp32 scalar on the count's device.  An int count is taken as
+    a CPU tensor."""
+    def f(count) -> torch.Tensor:
+        count = torch.as_tensor(count)
+        c = count.clamp(0, steps).to(torch.float32)
+        frac = 1 - c / _f32(steps, c.device)
+        return _f32(init - end, c.device) * frac + _f32(end, c.device)
 
     return f
 
 
-def make_schedule(config: MultimodalConfig, base_lr: float) -> Callable[[int], float]:
+def make_schedule(config: MultimodalConfig, base_lr: float) -> Callable:
     """DeepSpeed WarmupLR / WarmupDecayLR (reference config.py:101-123):
     linear warmup min_lr -> lr over ``warmup_num_steps``, then constant, or
     a linear decay to 0 until ``lr_decay_iters``; ``join_schedules`` hands
-    the second schedule the count minus the boundary."""
+    the second schedule the count minus the boundary.  Takes the count as a
+    tensor (or an int) and returns an fp32 scalar tensor on its device."""
     warmup = _linear(config.min_lr, base_lr, max(config.warmup_num_steps, 1))
     if config.lr_decay_iters is None:
-        second = lambda count: float(np.float32(base_lr))  # noqa: E731
+        second = lambda count: _f32(base_lr, count.device)  # noqa: E731
     else:
         second = _linear(base_lr, 0.0,
                          max(config.lr_decay_iters - config.warmup_num_steps, 1))
     boundary = config.warmup_num_steps
 
-    def schedule(count: int) -> float:
-        return warmup(count) if count < boundary else second(count - boundary)
+    def schedule(count) -> torch.Tensor:
+        count = torch.as_tensor(count)
+        return torch.where(count < boundary, warmup(count), second(count - boundary))
 
     return schedule
 
@@ -89,12 +101,17 @@ class AdamW:
     """The JAX package's optimizer over the trainable tensors, given as
     (path, tensor) pairs.  ``step(grads)`` updates the tensors in place
     from gradients in their dtypes and returns whether the update was
-    applied.  ``state_dict``/``load_state_dict`` carry the moments and
-    counts (the checkpoint's ``opt_state``)."""
+    applied, as a bool tensor on the parameters' device.  Every decision of
+    a step stays on that device, as in the JAX package's jitted step: the
+    finite flag, the clip, the applied flag and the counts (int32 tensors)
+    select through ``torch.where``, so the host never waits for the card.
+    ``state_dict``/``load_state_dict`` carry the moments and counts (the
+    checkpoint's ``opt_state``, counts as Python ints)."""
 
     def __init__(self, config: MultimodalConfig, named_params: List):
         self.paths = [p for p, _ in named_params]
         self.params = [t for _, t in named_params]
+        self.device = self.params[0].device if self.params else torch.device("cpu")
         main = make_schedule(config, config.lr)
         enc = make_schedule(config, config.image_enc_lr if config.image_enc_lr is not None
                             else config.lr)
@@ -104,53 +121,58 @@ class AdamW:
         self.clip = config.gradient_clipping if config.gradient_clipping else 0.0
         self.mu = [torch.zeros_like(t) for t in self.params]
         self.nu = [torch.zeros_like(t) for t in self.params]
-        self.count = 0              # updates applied (Adam's and the schedules' count)
-        self.notfinite_count = 0    # consecutive non-finite steps
-        self.total_notfinite = 0
+        self._set_counts(0, 0, 0)
+
+    def _set_counts(self, count: int, notfinite: int, total: int) -> None:
+        def i32(v):
+            return torch.full((), v, dtype=torch.int32, device=self.device)
+
+        self.count = i32(count)              # updates applied (Adam's and the schedules')
+        self.notfinite_count = i32(notfinite)  # consecutive non-finite steps
+        self.total_notfinite = i32(total)
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> bool:
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-        self.notfinite_count = 0 if finite else self.notfinite_count + 1
-        if not finite:
-            self.total_notfinite += 1
-            if self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
-                return False
-        if self.clip > 0:
+    def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1)
+        self.total_notfinite = torch.where(finite, self.total_notfinite,
+                                           self.total_notfinite + 1)
+        applied = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
+        if self.clip > 0:  # optax.clip_by_global_norm
             norm = torch.sqrt(sum((g * g).sum() for g in grads))
-            if not bool(norm < self.clip):
-                grads = [(g / norm.to(g.dtype)) * self.clip for g in grads]
+            keep = norm < self.clip
+            grads = [torch.where(keep, g, (g / norm.to(g.dtype)) * self.clip) for g in grads]
         b1, b2 = BETAS
         count = self.count + 1
         # the step's scalars, made once for each (dtype, device) and schedule
         bias_corr, neg_lr = {}, {}
         for i, (p, g) in enumerate(zip(self.params, grads)):
             dt, key = p.dtype, (p.dtype, p.device)
-            self.mu[i] = (1 - b1) * g + b1 * self.mu[i]
-            self.nu[i] = (1 - b2) * (g * g) + b2 * self.nu[i]
+            mu = (1 - b1) * g + b1 * self.mu[i]
+            nu = (1 - b2) * (g * g) + b2 * self.nu[i]
             if key not in bias_corr:  # in fp32, then in the moment's dtype
-                bias_corr[key] = [(1 - torch.tensor(b, dtype=torch.float32) ** count)
-                                  .to(dtype=dt, device=p.device) for b in BETAS]
+                bias_corr[key] = [(1 - _f32(b, p.device) ** count.to(p.device)).to(dt)
+                                  for b in BETAS]
             bc1, bc2 = bias_corr[key]
             if (self.lr[i], key) not in neg_lr:
-                neg_lr[self.lr[i], key] = torch.tensor(-self.lr[i](self.count), dtype=dt,
-                                                       device=p.device)
-            u = (self.mu[i] / bc1) / (torch.sqrt(self.nu[i] / bc2) + EPS)
+                neg_lr[self.lr[i], key] = (-self.lr[i](self.count.to(p.device))).to(dt)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
             u = u + self.wd[i] * p
             u = neg_lr[self.lr[i], key] * u
-            p.copy_((p + u).to(dt))
-        self.count = count
-        return True
+            self.mu[i] = torch.where(applied, mu, self.mu[i])
+            self.nu[i] = torch.where(applied, nu, self.nu[i])
+            p.copy_(torch.where(applied, (p + u).to(dt), p))
+        self.count = torch.where(applied, count, self.count)
+        return applied
 
     def state_dict(self) -> Dict:
         return {"mu": dict(zip(self.paths, self.mu)), "nu": dict(zip(self.paths, self.nu)),
-                "count": self.count, "notfinite_count": self.notfinite_count,
-                "total_notfinite": self.total_notfinite}
+                "count": int(self.count), "notfinite_count": int(self.notfinite_count),
+                "total_notfinite": int(self.total_notfinite)}
 
     def load_state_dict(self, state: Dict) -> None:
         for i, (path, t) in enumerate(zip(self.paths, self.params)):
             self.mu[i] = state["mu"][path].to(device=t.device, dtype=t.dtype)
             self.nu[i] = state["nu"][path].to(device=t.device, dtype=t.dtype)
-        self.count = int(state["count"])
-        self.notfinite_count = int(state["notfinite_count"])
-        self.total_notfinite = int(state["total_notfinite"])
+        self._set_counts(int(state["count"]), int(state["notfinite_count"]),
+                         int(state["total_notfinite"]))

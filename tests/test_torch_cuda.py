@@ -141,8 +141,14 @@ def _int8_inputs(dev, m, k, n, layers=2, seed=0):
     return x, wq, s
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 37, 192])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 37, 100, 192, 257, 2048])
 def test_int8_matmul_stacked_kernel_matches_plain(m, dev):
+    """M <= 8 takes the GEMV, larger M the wgmma tiles: a ragged M pads to
+    the tile's 64, 128, 192 or 256 rows with zero rows that are never
+    stored, and at N = 3584 the few tiles of M <= 256 split K over a
+    cluster.  wgmma sums each k16 step's exact products inside the tensor
+    core and adds them to the fp32 accumulator, one of k / 16 ordered
+    additions, so the classical bound of _sum_tol holds as for mma.sync."""
     from magma_tpu_torch.ops import quant
 
     x, wq, s = _int8_inputs(dev, m, 512, 3584)
@@ -185,7 +191,8 @@ def test_dual_kernel_matches_plain(m, dev):
     ra, rm = quant.dual_matmul_stacked_plain(ctx, h, {"q": wq, "s": s}, 1)
     assert torch.all((a - ra).abs() <= _sum_tol(ctx, wq[1, :ko], s[1, 0], ko))
     assert torch.all((mo - rm).abs() <= _sum_tol(h, wq[1, ko:], s[1, 1], kf))
-    # K split across a cluster at M <= 8, summed in a fixed order: the same bits
+    # K split across a cluster (at M <= 8 the GEMV's, at M = 192 the tiles'
+    # over fc_out's Kf = 4 Ko), summed in a fixed order: the same bits
     a2, mo2 = quant.dual_matmul_stacked(ctx, h, {"q": wq, "s": s}, 1)
     assert torch.equal(a, a2) and torch.equal(mo, mo2)
 
@@ -766,10 +773,13 @@ def test_flash_attention_grad_runs_k9(dev):
         assert (a.float() - r).abs().max().item() <= K9_REL_TOL * r.abs().max().item()
 
 
-@pytest.mark.parametrize("shape", [(5, 256, 384), (192, 512, 1024), (2048, 4096, 4096),
-                                   (256, 4096, 50304)],
-                         ids=["small", "m192", "qlora_o", "qlora_head"])
+@pytest.mark.parametrize("shape", [(5, 256, 384), (9, 384, 640), (192, 512, 1024),
+                                   (2048, 4096, 4096), (256, 4096, 50304)],
+                         ids=["small", "m9_ragged_k", "m192", "qlora_o", "qlora_head"])
 def test_int8_dx_kernel_matches_plain(shape, dev):
+    """Rows past M and dx columns past K (a 256-wide tile over K = 384) are
+    zero-filled and never stored; the head's 32 tiles at M = 256 split N over
+    a cluster and add the parts in rank order: the same bits on a repeat."""
     m, k, n = shape
     g = torch.Generator(device=dev).manual_seed(6)
     grad = torch.randn((m, n), generator=g, device=dev)
@@ -784,6 +794,7 @@ def test_int8_dx_kernel_matches_plain(shape, dev):
     # products of bf16 values are exact in fp32: only the summation order differs
     tol = 2 * n * 2.0 ** -24 * (gs.float().abs() @ wq[1].float().abs().T) + 1e-30
     assert ((dx - ref).abs() <= tol).all()
+    assert torch.equal(dx, quant.int8_matmul_dx_kernel(grad, wq[1], s[1]))
 
 
 def test_int8_matmul_grad_runs_k10(dev):
@@ -827,3 +838,41 @@ def test_training_wrappers_raise_on_what_they_do_not_take(bad, dev):
     with pytest.raises((TypeError, ValueError)):
         quant.int8_matmul_dx_kernel(g, wq, s)
     assert quant.int8_matmul_dx_kernel.launches == before
+
+
+@pytest.mark.parametrize("layout", ["bf16", "qlora"])
+def test_train_step_reads_nothing_from_the_card(layout, dev):
+    """``Trainer.train_step(sync=False)`` on a tiny model (2 layers, one
+    128-wide head, K1/K9 and in the QLoRA layout K2a/K2b/K10) queues a whole
+    step, the optimizer's decisions included, without the host waiting for
+    the card: under ``set_sync_debug_mode("error")`` any synchronising call
+    raises."""
+    from magma_tpu_torch.config import MultimodalConfig
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.training.train_loop import Trainer
+
+    qlora = layout == "qlora"
+    cfg = MultimodalConfig(
+        batch_size=4, train_steps=4, gradient_accumulation_steps=2, lr=2e-3, warmup_num_steps=1,
+        gradient_clipping=1.0, image_enc_lr=1e-3, encoder_name="clip_resnet_large",
+        adapter_config={"mlp": {"adapter_type": "normal", "downsample_factor": 4}},
+        use_image_embed_layernorm=True, image_embed_dropout_prob=0.1,
+        freeze_img_encoder=qlora, train_lm_int8=qlora, image_size=64, mesh_dp=1, mesh_tp=1,
+        lm_overrides=dict(n_layers=2, n_heads=1, d_model=128, d_ff=512, rotary_dim=16,
+                          max_seq_len=64, attention_impl="flash"),
+        encoder_overrides=dict(width=16, blocks=(1, 1, 1, 1), input_resolution=64))
+    trainer = Trainer(Magma(cfg, seed=0, device=dev), cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    images = torch.randn((4, 3, 64, 64), generator=g, device=dev)
+    captions = torch.full((4, 64), 50256, dtype=torch.long, device=dev)
+    captions[:, :20] = torch.randint(0, 50000, (4, 20), generator=g, device=dev)
+    trainer.train_step(images, captions)  # loads the kernels; returns a float
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [trainer.train_step(images, captions, sync=False) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(isinstance(x, torch.Tensor) and x.is_cuda for x in losses)
+    assert torch.isfinite(torch.stack(losses)).all()
+    assert int(trainer.optimizer.count) == 4 and int(trainer.optimizer.total_notfinite) == 0

@@ -330,32 +330,70 @@ def _torch_tree(p):
     return jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), p)
 
 
-def test_adamw_steps_match_optax():
-    """Five clipped AdamW steps over the four groups in fp32 (the gradient
-    norm above the clip in some steps, below in others), then a step with
-    a NaN gradient that both skip, then one more applied."""
-    r = np.random.default_rng(8)
+def _adamw_against_optax(r, scales, nan_steps, step_fn=None):
+    """AdamW steps over the four groups in fp32 with gradients of the given
+    scales (NaN in ``nan_steps``), each held against optax; ``step_fn``
+    wraps the port's step.  Returns the port's optimizer and the applied
+    flags."""
     p = _param_tree(r)
     jcfg, tcfg = _opt_config(JConfig), _opt_config(TConfig)
     opt, _ = joptim.make_optimizer(jcfg, p)
-    jp, jstate = jax.tree_util.tree_map(jnp.asarray, p), None
+    jp = jax.tree_util.tree_map(jnp.asarray, p)
     jstate = opt.init(jp)
     tp = _torch_tree(p)
     named = list(tree_items(tp))
     topt = toptim.AdamW(tcfg, named)
-    for step in range(7):
-        scale = (0.05, 3.0, 0.2, 5.0, 0.01, 1.0, 1.0)[step]
+    flags = []
+    for step, scale in enumerate(scales):
         g = jax.tree_util.tree_map(lambda a: _rand(r, *a.shape, scale=scale), p)
-        if step == 5:
+        if step in nan_steps:
             g["lm"]["wte"][0, 0] = np.nan
         upd, jstate = opt.update(jax.tree_util.tree_map(jnp.asarray, g), jstate, jp)
         jp = optax.apply_updates(jp, upd)
-        applied = topt.step([torch.from_numpy(a) for _, a in tree_items(g)])
-        assert applied == (step != 5)
+        grads = [torch.from_numpy(a) for _, a in tree_items(g)]
+        flags.append(topt.step(grads) if step_fn is None else step_fn(topt, grads))
         for (path, t), (_, w) in zip(named, tree_items(jp)):
             np.testing.assert_allclose(t.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7,
                                        err_msg=f"step {step} {path}")
-    assert topt.count == 6 and topt.total_notfinite == 1
+    return topt, flags
+
+
+def test_adamw_steps_match_optax():
+    """Five clipped AdamW steps over the four groups in fp32 (the gradient
+    norm above the clip in some steps, below in others), then a step with
+    a NaN gradient that both skip, then one more applied.  The applied flag
+    and the counts are tensors on the parameters' device."""
+    topt, flags = _adamw_against_optax(np.random.default_rng(8),
+                                       (0.05, 3.0, 0.2, 5.0, 0.01, 1.0, 1.0), {5})
+    assert all(isinstance(f, torch.Tensor) and f.dtype == torch.bool for f in flags)
+    assert [bool(f) for f in flags] == [True] * 5 + [False, True]
+    assert int(topt.count) == 6 and int(topt.total_notfinite) == 1
+    assert int(topt.notfinite_count) == 0
+
+
+def test_adamw_step_reads_nothing_from_the_device(monkeypatch):
+    """``AdamW.step`` makes no decision on the host: with a tensor's bool,
+    item, float and int conversions raising while it runs, clipped,
+    unclipped and non-finite steps still match optax, including the
+    eleventh non-finite step in a row, which optax applies."""
+
+    def refuse(*_):
+        raise AssertionError("AdamW.step read a value from a tensor")
+
+    def patched_step(topt, grads):
+        with monkeypatch.context() as m:
+            for name in ("__bool__", "item", "__float__", "__int__"):
+                m.setattr(torch.Tensor, name, refuse)
+            return topt.step(grads)
+
+    nan_steps = set(range(3, 3 + toptim.MAX_CONSECUTIVE_ERRORS + 1))
+    scales = (0.05, 3.0, 0.2) + (1.0,) * len(nan_steps) + (5.0, 0.01)
+    topt, flags = _adamw_against_optax(np.random.default_rng(12), scales, nan_steps,
+                                       step_fn=patched_step)
+    last_nan = max(nan_steps)
+    assert [bool(f) for f in flags] == [s not in nan_steps or s == last_nan
+                                        for s in range(len(scales))]
+    assert int(topt.total_notfinite) == len(nan_steps) and int(topt.notfinite_count) == 0
 
 
 # ---------------------------------------------------------------------------
