@@ -31,8 +31,10 @@ Phases (any failed check or exception ends the run with a non-zero exit):
 4. The greedy request's prefill logits through K1 against the plain
    attention path, and the greedy tokens of both.
 2c. The int4 (W4A8) kernels against their plain versions on seeded
-   inputs at the slice's shapes: K3 (in_proj) at M = 1, 5, 37, 192, K4b
-   (o_proj + fc_out) at M = 1, 192, K6 (the layer boundary) at M = 1, 8
+   inputs at the slice's shapes: K3 (in_proj) at M = 1, 5, 9, 37, 65, 192,
+   2048, K4b (o_proj + fc_out) at M = 1, 9, 65, 192 (bit for bit, and the
+   same bits on a repeat; above M = 8 the activation pre-pass and the
+   wgmma tile), K6 (the layer boundary) at M = 1, 8
    with and without the next in_proj, for the v1 adapter and for an
    attention adapter (scaled_parallel) beside the mlp one with o_bias; each
    timed with its plain version and bf16 PyTorch calls over weights
@@ -624,21 +626,27 @@ def phase_int4_kernels(torch):
     L = 2
     q4, s4 = int4_stack(L, D, N_IN)
     w_lib = [deq(q4[i], s4[i]) for i in range(L)]
-    for m in (1, 5, 37, 192):
+    for m in (1, 5, 9, 37, 65, 192, 2048):
         x = bf16(m, D)
         out = quant.int4_matmul_stacked(x, q4, s4, 1)
         ref = quant.int4_matmul_stacked_plain(x, q4, s4, 1)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        it = itertools.cycle(range(L))
-        tm = timing("K3 in_proj", m, lambda: quant.int4_matmul_stacked(x, q4, s4, next(it)),
-                    lambda: quant.int4_matmul_stacked_plain(x, q4, s4, next(it)),
-                    lambda: torch.matmul(x, w_lib[next(it)]),
-                    nbytes(x, q4[0], s4[0]) + m * N_IN * 4, 2 * m * D * N_IN,
-                    "w4a8_gemv_kernel" if m <= 8 else "w4a8_mma")
-        # the JSON line carries decode's (M=1) numbers; the log has M=192's
+        check(torch.equal(out, quant.int4_matmul_stacked(x, q4, s4, 1)),
+              f"K3 in_proj M={m}: another result on a repeat")
+        tm = None
+        if m in (1, 192, 2048):
+            it = itertools.cycle(range(L))
+            # alone: the GEMV at M <= 8, else the activation pre-pass and the tile
+            tm = timing("K3 in_proj", m, lambda: quant.int4_matmul_stacked(x, q4, s4, next(it)),
+                        lambda: quant.int4_matmul_stacked_plain(x, q4, s4, next(it)),
+                        lambda: torch.matmul(x, w_lib[next(it)]),
+                        nbytes(x, q4[0], s4[0]) + m * N_IN * 4, 2 * m * D * N_IN,
+                        "w4a8_gemv_kernel" if m <= 8 else "w4a8_wgmma",
+                        plain_iters=3 if m == 2048 else 10)
+        # the JSON line carries the prefill's (M=192) numbers; the log has the others
         report("int4_matmul_stacked_kernel", "K3 in_proj", m, err, err <= INT4_TOL,
-               tm if m == 1 else None)
+               tm if m == 192 else None)
     del q4, s4, w_lib
 
     # K4b: o_proj + fc_out, 2 layers of 42.6 MB cycled
@@ -648,12 +656,18 @@ def phase_int4_kernels(torch):
     lib_o = [deq(qo[i], so[i]) for i in range(L)]
     lib_f = [deq(qf[i], sf[i]) for i in range(L)]
     del qo, so, qf, sf
-    for m in (1, 192):
+    for m in (1, 9, 65, 192):
         ctx, h = bf16(m, D), bf16(m, F_, std=0.5)
         a, mo = quant.dual_matmul_stacked(ctx, h, w, 1)
         ra, rm = quant.dual_matmul_stacked_plain(ctx, h, w, 1)
         torch.cuda.synchronize()
         err = max((a - ra).abs().max().item(), (mo - rm).abs().max().item())
+        a2, mo2 = quant.dual_matmul_stacked(ctx, h, w, 1)
+        check(torch.equal(a, a2) and torch.equal(mo, mo2),
+              f"K4b M={m}: another result on a repeat")
+        if m not in (1, 192):
+            report("int4_dual_kernel", "K4b out_proj", m, err, err <= INT4_TOL)
+            continue
         it = itertools.cycle(range(L))
 
         def library():
@@ -663,7 +677,7 @@ def phase_int4_kernels(torch):
         tm = timing("K4b out_proj", m, lambda: quant.dual_matmul_stacked(ctx, h, w, next(it)),
                     lambda: quant.dual_matmul_stacked_plain(ctx, h, w, next(it)), library,
                     nbytes(ctx, h, w["q4"][0], w["s4"][0]) + 2 * m * D * 4,
-                    2 * m * (D + F_) * D, "w4a8_gemv_kernel" if m <= 8 else "w4a8_mma")
+                    2 * m * (D + F_) * D, "w4a8_gemv_kernel" if m <= 8 else "w4a8_wgmma")
         # the main path runs K4b in prefill only: the JSON line has M=192
         report("int4_dual_kernel", "K4b out_proj", m, err, err <= INT4_TOL,
                tm if m == 192 else None)

@@ -68,7 +68,7 @@
 // Measured alone (torch.profiler, chip_smoke.py, NVIDIA H100 80GB HBM3 at a
 // 700 W power limit): at M = 1 the GEMV as before (K2b 69.4 us, 51% of its
 // bound; K4a 55.4 us; K2a 117 us); the tiles K2b M=192 90.7 us (50%; the
-// mma.sync tile they replace: 437 us in scripts/torch_int8_tiles_ab.py),
+// mma.sync tile they replace: 437 us in scripts/torch_tiles_ab.py),
 // K4a M=192 107 us (30%), K2b M=2048 727 us in_proj (67%), 107 us o, 386
 // us fc_out (72%), K2a M=256 164 us (65%).  What holds the tiles back: each stage moves about 0.01 bytes a
 // flop out of L2, and the consumers' A widening is not overlapped with

@@ -48,7 +48,7 @@
 // Each dx element is a fixed-order sum: no atomics, the same bits from run
 // to run.
 //
-// Measured alone (torch.profiler, scripts/torch_int8_tiles_ab.py, NVIDIA
+// Measured alone (torch.profiler, scripts/torch_tiles_ab.py, NVIDIA
 // H100 80GB HBM3 at a 700 W power limit) at M = 2048: in_proj 1.30 ms (37%
 // of its bound; the mma.sync kernel it replaces 3.50 ms), o 0.200, fc_out
 // 0.785, head 2.25; the head's M = 256 chunk 0.600 (18%).  About twice the

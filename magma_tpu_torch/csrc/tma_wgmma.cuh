@@ -1,8 +1,9 @@
 // Hopper pipeline pieces shared by the int8 weight-only tiles of
-// int8_matmul.cu (K2a, K2b, K4a at M > 8) and int8_matmul_dx.cu (K10):
-// mbarriers, TMA tile loads and bulk copies, the 128-byte-swizzled shared
-// memory descriptor, register rebalancing, cluster barriers and
-// wgmma.mma_async with A from registers (bf16 x bf16 -> fp32).
+// int8_matmul.cu (K2a, K2b, K4a at M > 8), int8_matmul_dx.cu (K10) and the
+// W4A8 tile of int4_matmul.cu (K3, K4b at M > 8): mbarriers, TMA tile loads
+// and bulk copies, the 128-byte-swizzled shared memory descriptor, register
+// rebalancing, cluster barriers and wgmma.mma_async with A from registers
+// (bf16 x bf16 -> fp32, and s8 x s8 -> s32).
 //
 // Fragment conventions (PTX ISA, wgmma .m64nNk16): warp w of the
 // warpgroup owns rows 16w .. 16w + 15 of the 64-row A and D tiles, laid out
@@ -16,6 +17,12 @@
 // 64 bf16 (128 bytes) per B column, the 16-byte chunk c of row r stored at
 // chunk c ^ (r % 8), 8-row groups 1024 bytes apart, the tile 1024-byte
 // aligned.  The k16 step kk starts 32 kk bytes into each row.
+//
+// The s8 products (.m64nNk32) use the same descriptor over rows of 128 int8
+// codes, the k32 step kk again 32 kk bytes into each row; A holds four
+// consecutive k of one row in each register, as mma.m16n8k32: (row g, k
+// 4t..4t+3), (row g+8, k 4t..), (row g, k 16+4t..), (row g+8, k 16+4t..);
+// D's s32 entries sit where the fp32 ones do.
 
 #pragma once
 
@@ -206,6 +213,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // D (64 x N, fp32) += A (64 x 16 bf16, registers) * B (16 x N bf16, shared
 // memory descriptor), asynchronous: Wgmma<N>::rs
 template <int N>
@@ -314,6 +327,52 @@ struct Wgmma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
 };
+
+// D (64 x N, s32) = A (64 x 32 s8, registers) * B (32 x N s8, shared memory
+// descriptor) + (accumulate ? D : 0), asynchronous, exact in int32:
+// WgmmaS8<N>::rs
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void rs(int (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<96> {
+  static __device__ __forceinline__ void rs(int (&d)[48], const uint32_t (&a)[4], uint64_t desc,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
 
 // ---------------------------------------------------------------------------
 // host: tensor maps through the driver entry point (the build links only

@@ -54,12 +54,14 @@ __device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1, uint32_t 
 }
 
 // the TPU kernels' `_quantize_act_block` for one row of 256 values, by one
-// warp: each lane quantises 8 columns into codes[8 lane .. 8 lane + 8).
-// Returns the row's scale (in every lane).  row == nullptr is a padding row:
-// codes 0, scale 1.  COHERENT reads through L2 (data written earlier in the
-// same launch); otherwise through the read-only path.
+// warp: each lane quantises 8 columns, 8 lane .. 8 lane + 7, into
+// packed[0] (the first four codes, lowest byte first) and packed[1].
+// Returns the row's scale (in every lane).  row == nullptr is a padding
+// row: codes 0, scale 1.  COHERENT reads through L2 (data written earlier in
+// the same launch); otherwise through the read-only path.
 template <bool COHERENT>
-__device__ __forceinline__ float warp_quantize_row(const __nv_bfloat16* row, int8_t* codes) {
+__device__ __forceinline__ float warp_quantize_codes(const __nv_bfloat16* row,
+                                                     uint32_t (&packed)[2]) {
   const int lane = threadIdx.x & 31;
   float v[8];
   if (row != nullptr) {
@@ -82,13 +84,21 @@ __device__ __forceinline__ float warp_quantize_row(const __nv_bfloat16* row, int
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   const float scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
-  uint32_t packed[2] = {0u, 0u};
+  packed[0] = packed[1] = 0u;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int q = static_cast<int>(rintf(__fdiv_rn(v[i], scale)));
     packed[i / 4] |= (static_cast<uint32_t>(q) & 0xFFu) << (8 * (i % 4));
   }
-  *reinterpret_cast<uint2*>(codes + lane * 8) = make_uint2(packed[0], packed[1]);
+  return scale;
+}
+
+// warp_quantize_codes with the codes stored in order at codes[0..256)
+template <bool COHERENT>
+__device__ __forceinline__ float warp_quantize_row(const __nv_bfloat16* row, int8_t* codes) {
+  uint32_t packed[2];
+  const float scale = warp_quantize_codes<COHERENT>(row, packed);
+  *reinterpret_cast<uint2*>(codes + (threadIdx.x & 31) * 8) = make_uint2(packed[0], packed[1]);
   return scale;
 }
 
@@ -97,6 +107,31 @@ __device__ __forceinline__ float w4a8_term(int plo, float sxlo, float slo, int p
                                            float shi) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(plo), sxlo), slo),
                    __fmul_rn(__fmul_rn(__int2float_rn(phi), sxhi), shi));
+}
+
+// The wgmma tile's int8 operands (int4_matmul.cu, M > 8) carry each nibble
+// times 16: the signed low nibble of a byte b is (int8)(b << 4) / 16 and the
+// signed high nibble (int8)(b & 0xF0) / 16, so both come out of a packed
+// word in three instructions.  A group's int32 dot is then 16 p, |16 p| <=
+// 16 * 256 * 127 * 8 < 2^22, and p = 16 p / 16 is recovered exactly as a
+// float: 1.5 * 2^19 has an ulp of 1/16, so adding 16 p to its bits gives
+// 1.5 * 2^19 + p, and subtracting 1.5 * 2^19 is exact.  The same float as
+// __int2float_rn(p), in two full-rate instructions instead of a
+// quarter-rate conversion.
+__device__ __forceinline__ void nibbles_x16(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  lo = (v << 4) & 0xF0F0F0F0u;
+  hi = v & 0xF0F0F0F0u;
+}
+
+__device__ __forceinline__ float dot_x16_to_float(int p16) {
+  return __fsub_rn(__int_as_float(p16 + 0x49400000), 786432.f);
+}
+
+// w4a8_term over dots that carry the factor 16: the same bits
+__device__ __forceinline__ float w4a8_term_x16(int plo16, float sxlo, float slo, int phi16,
+                                               float sxhi, float shi) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(dot_x16_to_float(plo16), sxlo), slo),
+                   __fmul_rn(__fmul_rn(dot_x16_to_float(phi16), sxhi), shi));
 }
 
 // One warp, one group: the int32 dots of the 256 packed rows of w (row

@@ -734,8 +734,10 @@ def _check_int4(name: str, q4: torch.Tensor, s4: torch.Tensor, k: int, device) -
 def _launch_int4(segments, m: int, n: int, device) -> None:
     """One launch of ``csrc/int4_matmul.cu`` over one or two segments of
     (x (M, K) bf16, q4 (K/2, N) int8, s4 (K/256, N) fp32, out (M, N) fp32).
-    Above 8 rows the kernel quantises x once into scratch: int8 codes and
-    fp32 scales of every segment's rows."""
+    Above 8 rows the kernel quantises x once into scratch: int8 codes of
+    every segment's rows, and fp32 scales of its rows rounded up to a
+    multiple of 192 (``XS_ROWS`` in the source: the wgmma tile reads whole
+    row tiles of 64 or 96 scales)."""
     args = []
     for x, q4, s4, out in segments:
         args += [x.data_ptr(), x.stride(0), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
@@ -746,7 +748,8 @@ def _launch_int4(segments, m: int, n: int, device) -> None:
     if m > 8:
         k = sum(seg[0].shape[1] for seg in segments)
         codes = torch.empty(m * k, dtype=torch.int8, device=device)
-        xs = torch.empty(m * k // INT4_GROUP, dtype=torch.float32, device=device)
+        xs_rows = -(-m // 192) * 192
+        xs = torch.empty(xs_rows * k // INT4_GROUP, dtype=torch.float32, device=device)
     err = _int4_fn()(len(segments), m, n, *args, None if codes is None else codes.data_ptr(),
                      None if xs is None else xs.data_ptr(),
                      torch.cuda.current_stream(device).cuda_stream)

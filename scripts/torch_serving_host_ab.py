@@ -13,7 +13,10 @@ median of ``--iters`` calls of
 * the bf16 prefill forward of a 166-position prompt padded to 192 (the last
   position's head included) and one bf16 decode step after it,
 * the same after ``quantize_for_serving(8)`` (the int8 path: K2a, K2b, K4a
-  and K1 in the prefill, K8 in the b=1 decode step).
+  and K1 in the prefill, K8 in the b=1 decode step),
+* the same after ``quantize_for_serving(4)`` of the model made again from
+  the seed (the int4 path: K3, K4b, K1 and K2a in the prefill, K3 and K8
+  in the decode step).
 
 The device work is the same in every checkout when the kernels are; what
 differs is host time.  The checkouts run in the order given, then in the
@@ -63,9 +66,13 @@ def _child(tree: Path, device: str, tiny: bool, iters: int) -> dict:
     if package.parent != tree:
         raise RuntimeError(f"imported {package}, not the package of {tree}")
     out = {"tree": str(tree)}
-    for tag in ("bf16", "int8"):
+    for tag in ("bf16", "int8", "int4"):
         if tag == "int8":
             model.quantize_for_serving(8)
+        elif tag == "int4":  # int4 starts from full precision: the model again from the seed
+            del model
+            model = Magma(cfg, seed=0, device=dev)
+            model.quantize_for_serving(4)
         lm_cfg, lm = model.lm_config, model.params["lm"]
         g = torch.Generator(device=dev).manual_seed(0)
         emb = (torch.randn((1, PROMPT_LEN, lm_cfg.d_model), generator=g, device=dev) * 0.02

@@ -9,8 +9,9 @@ archive`` into ``build/parent``, and this one, ".").  Every run is a fresh
 process that imports ``magma_tpu_torch`` from its DIR, builds that
 checkout's kernels and times each kernel wrapper alone (torch.profiler, the
 device time of the launches whose kernel is not an elementwise fill) at the
-shapes of the caption prefill (M = 192) and of the QLoRA step (M = 2048, the
-head chunk M = 256), on seeded inputs made on the card, cycling through
+shapes of the caption prefill (M = 192; K3 also at a 2048-row prompt) and
+of the QLoRA step (M = 2048, the head chunk M = 256), on seeded inputs made
+on the card (int4 weights quantised there from seeded normals), cycling through
 enough layers that the weights do not stay in the 50 MB L2.  The checkouts
 run in the order given, then in the reverse order, ``--repeat`` times over
 (A B B A).  Prints one JSON line per run and the medians per checkout.
@@ -40,10 +41,43 @@ SHAPES = (
     ("K10 fc_out", "dx", 2048, F_, D, 2),
     ("K10 head", "dx", 2048, D, V, 1),
     ("K10 head", "dx", 256, D, V, 1),
+    ("K3 in_proj", "int4", 192, D, 3 * D + F_, 2),
+    ("K3 in_proj", "int4", 2048, D, 3 * D + F_, 2),
+    ("K3 in_proj", "int4", 1, D, 3 * D + F_, 2),
+    ("K4b o+fc_out", "int4_dual", 192, D + F_, D, 2),
+    ("K4b o+fc_out", "int4_dual", 1, D + F_, D, 2),
 )
 
 
-def _child(tree: Path, calls: int) -> dict:
+def _inputs(torch, quant, g, dev, kind, m, k, n, layers):
+    """Seeded weights (layers of them), scales, inputs, and a call of the
+    kind's kernel wrapper on layer i: (weights, scales, call)."""
+    bf16 = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    if kind.startswith("int4"):
+        packs = [quant.quantize_int4(torch.randn((k, n), generator=g, device=dev) * 0.02,
+                                     compiled=True) for _ in range(layers)]
+        wq, s = torch.stack([p["q4"] for p in packs]), torch.stack([p["s4"] for p in packs])
+        if kind == "int4_dual":
+            ctx, h = bf16(m, D), bf16(m, F_)
+            return wq, s, lambda i: quant.int4_dual_kernel(ctx, h, wq, s, i)
+        x = bf16(m, k)
+        return wq, s, lambda i: quant.int4_matmul_stacked_kernel(x, wq, s, i)
+    wq = torch.randint(-127, 128, (layers, k, n), generator=g, device=dev, dtype=torch.int8)
+    if kind == "dual":
+        s = torch.rand((layers, 2, n), generator=g, device=dev) * 2e-4 + 1e-5
+        ctx, h = bf16(m, D), bf16(m, F_)
+        return wq, s, lambda i: quant.dual_matmul_kernel(ctx, h, wq, s, i)
+    s = torch.rand((layers, n), generator=g, device=dev) * 2e-4 + 1e-5
+    if kind == "dx":
+        gr = torch.randn((m, n), generator=g, device=dev) * 1e-3
+        return wq, s, lambda i: quant.int8_matmul_dx_kernel(gr, wq[i], s[i])
+    x = bf16(m, k)
+    if kind == "head":
+        return wq, s, lambda i: quant.int8_matmul_kernel(x, wq[i], s[i])
+    return wq, s, lambda i: quant.int8_matmul_stacked_kernel(x, wq, s, i)
+
+
+def _child(tree: Path, calls: int, only: tuple) -> dict:
     sys.path.insert(0, str(tree))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -60,23 +94,10 @@ def _child(tree: Path, calls: int) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     out = {"tree": str(tree)}
     for label, kind, m, k, n, layers in SHAPES:
-        wq = torch.randint(-127, 128, (layers, k, n), generator=g, device=dev, dtype=torch.int8)
-        if kind == "dual":
-            s = torch.rand((layers, 2, n), generator=g, device=dev) * 2e-4 + 1e-5
-            ctx = torch.randn((m, D), generator=g, device=dev).to(torch.bfloat16)
-            h = torch.randn((m, F_), generator=g, device=dev).to(torch.bfloat16)
-            call = lambda i: quant.dual_matmul_kernel(ctx, h, wq, s, i)  # noqa: E731
-        else:
-            s = torch.rand((layers, n), generator=g, device=dev) * 2e-4 + 1e-5
-            if kind == "dx":
-                gr = torch.randn((m, n), generator=g, device=dev) * 1e-3
-                call = lambda i: quant.int8_matmul_dx_kernel(gr, wq[i], s[i])  # noqa: E731
-            else:
-                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-                if kind == "head":
-                    call = lambda i: quant.int8_matmul_kernel(x, wq[i], s[i])  # noqa: E731
-                else:
-                    call = lambda i: quant.int8_matmul_stacked_kernel(x, wq, s, i)  # noqa: E731
+        if only and not label.startswith(only):
+            continue
+        wq, s, call = _inputs(torch, quant, g, dev, kind, m, k, n, layers)
+        match = ("w4a8",) if kind.startswith("int4") else ("int8", "gemv", "mma")
         it = itertools.cycle(range(layers))
         for _ in range(3):
             call(next(it))
@@ -85,10 +106,13 @@ def _child(tree: Path, calls: int) -> dict:
             for _ in range(calls):
                 call(next(it))
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and ("int8" in e.name or "gemv" in e.name or "mma" in e.name)]
-        out[f"{label} M={m}"] = sum(times) / calls / 1e3 if times else None
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and any(word in e.name for word in match)]
+        out[f"{label} M={m}"] = (sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
+                                 if events else None)
+        if kind.startswith("int4") and m > 8:  # the activation pre-pass's share
+            out[f"{label} M={m} pre-pass"] = sum(
+                e.time_range.elapsed_us() for e in events if "quantize" in e.name) / calls / 1e3
         del wq, s
         torch.cuda.empty_cache()
     return out
@@ -99,17 +123,20 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", type=Path)
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--calls", type=int, default=20)
+    ap.add_argument("--only", default="",
+                    help="comma-separated label prefixes to time (e.g. K3,K4b); all by default")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        print(json.dumps(_child(args.child.resolve(), args.calls)))
+        only = tuple(w for w in args.only.split(",") if w)
+        print(json.dumps(_child(args.child.resolve(), args.calls, only)))
         return 0
     trees = [t.resolve() for t in args.trees]
     order = (trees + trees[::-1]) * args.repeat
     runs = []
     for tree in order:
         proc = subprocess.run([sys.executable, __file__, "--child", str(tree),
-                               "--calls", str(args.calls)],
+                               "--calls", str(args.calls), "--only", args.only],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)

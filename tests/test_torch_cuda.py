@@ -328,38 +328,68 @@ def _bf16_rows(dev, m, k, seed, std=1.0):
     return (torch.randn((m, k), generator=g, device=dev) * std).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("m", [1, 5, 37, 192])
-def test_int4_matmul_stacked_kernel_matches_plain(m, dev):
-    """K3 on the in_proj stack (K=4096, N=28672): the int8 dots are exact
-    and the fp32 steps are the plain version's, in its order, so the two
-    are equal bit for bit, and the same from run to run."""
+def _check_k3(dev, x, q4, s4):
+    """K3 once (one launch) against the plain version and a repeat, bit for bit."""
     from magma_tpu_torch.ops import quant
 
-    q4, s4 = _int4_stack(dev, 4096, 28672)
-    x = _bf16_rows(dev, m, 4096, 1)
     before = quant.int4_matmul_stacked_kernel.launches
     out = quant.int4_matmul_stacked(x, q4, s4, 1)
     torch.cuda.synchronize()
     assert quant.int4_matmul_stacked_kernel.launches == before + 1
-    assert out.dtype == torch.float32 and out.shape == (m, 28672)
+    assert out.dtype == torch.float32 and out.shape == (x.shape[0], q4.shape[-1])
     assert torch.equal(out, quant.int4_matmul_stacked_plain(x, q4, s4, 1))
     assert torch.equal(out, quant.int4_matmul_stacked(x, q4, s4, 1))
 
 
-@pytest.mark.parametrize("m", [1, 8, 192])
-def test_int4_dual_kernel_matches_plain(m, dev):
+def _check_k4b(dev, ctx, h, w):
+    """K4b once (one launch) against the plain version and a repeat, bit for bit."""
     from magma_tpu_torch.ops import quant
 
-    qo, so = _int4_stack(dev, 4096, 4096, seed=2)
-    qf, sf = _int4_stack(dev, 16384, 4096, seed=3)
-    w = {"q4": torch.cat([qo, qf], dim=1), "s4": torch.cat([so, sf], dim=1)}
-    ctx, h = _bf16_rows(dev, m, 4096, 4), _bf16_rows(dev, m, 16384, 5, 0.5)
     before = quant.int4_dual_kernel.launches
     a, mo = quant.dual_matmul_stacked(ctx, h, w, 1)
     torch.cuda.synchronize()
     assert quant.int4_dual_kernel.launches == before + 1
     ra, rm = quant.dual_matmul_stacked_plain(ctx, h, w, 1)
     assert torch.equal(a, ra) and torch.equal(mo, rm)
+    a2, mo2 = quant.dual_matmul_stacked(ctx, h, w, 1)
+    assert torch.equal(a, a2) and torch.equal(mo, mo2)
+
+
+def _dual_payload(dev):
+    qo, so = _int4_stack(dev, 4096, 4096, seed=2)
+    qf, sf = _int4_stack(dev, 16384, 4096, seed=3)
+    return {"q4": torch.cat([qo, qf], dim=1), "s4": torch.cat([so, sf], dim=1)}
+
+
+@pytest.mark.parametrize("m", [1, 5, 9, 37, 64, 65, 192, 200, 2048])
+def test_int4_matmul_stacked_kernel_matches_plain(m, dev):
+    """K3 on the in_proj stack (K=4096, N=28672): the int8 dots are exact
+    and the fp32 steps are the plain version's, in its order, so the two
+    are equal bit for bit, and the same from run to run.  M > 8 runs the
+    wgmma tile: 64 rows a block up to 64, 96 above, ragged at 9, 65, 200."""
+    q4, s4 = _int4_stack(dev, 4096, 28672)
+    _check_k3(dev, _bf16_rows(dev, m, 4096, 1), q4, s4)
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 65, 192, 200])
+def test_int4_dual_kernel_matches_plain(m, dev):
+    w = _dual_payload(dev)
+    _check_k4b(dev, _bf16_rows(dev, m, 4096, 4), _bf16_rows(dev, m, 16384, 5, 0.5), w)
+
+
+def test_int4_kernels_with_zero_rows(dev):
+    """Rows of x that are all zero quantise to codes 0 with scale 1, in the
+    kernels as in the plain version: K3 and K4b at M = 200, with zero rows
+    inside a row tile, at a tile's first row and at the last row."""
+    zero = [0, 5, 6, 7, 95, 96, 150, 199]
+    q4, s4 = _int4_stack(dev, 4096, 28672)
+    x = _bf16_rows(dev, 200, 4096, 1)
+    x[zero] = 0
+    _check_k3(dev, x, q4, s4)
+    ctx, h = _bf16_rows(dev, 200, 4096, 4), _bf16_rows(dev, 200, 16384, 5, 0.5)
+    ctx[zero] = 0
+    h[zero[1:]] = 0
+    _check_k4b(dev, ctx, h, _dual_payload(dev))
 
 
 def _boundary_payloads(dev, variant):

@@ -244,7 +244,7 @@ def _int4_stack(k, n, seed, layers=2):
     return np.asarray(q["q4"]), np.asarray(q["s4"])
 
 
-@pytest.mark.parametrize("m", [1, 5, 37])
+@pytest.mark.parametrize("m", [1, 5, 9, 37, 65])
 def test_int4_matmul_plain_is_the_w4a8_arithmetic(m):
     q4, s4 = _int4_stack(1024, 384, 1)
     x = _normal((m, 1024), 10 + m)
@@ -257,7 +257,7 @@ def test_int4_matmul_plain_is_the_w4a8_arithmetic(m):
         assert np.all(np.abs(got.numpy() - w4a16) <= _a8_bound(x, q4[li], s4[li]))
 
 
-@pytest.mark.parametrize("m", [1, 37])
+@pytest.mark.parametrize("m", [1, 9, 37, 65])
 def test_int4_dual_plain_is_the_w4a8_arithmetic(m):
     ko, kf, n = 512, 1024, 256
     qo, so = _int4_stack(ko, n, 2)
