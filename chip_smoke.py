@@ -79,9 +79,11 @@ Phases (any failed check or exception ends the run with a non-zero exit):
 2e. The training kernels against their plain versions: K9a/K9b (the flash
    backward) at (b 2, s 2048, h 16, hd 256, causal) and at a padded
    kv_len case of hd 128, each gradient within 2e-2 of its largest
-   magnitude; K10 (the int8 input gradient) at M = 2048 on the in_proj,
-   o, fc_out and head shapes and at the head's M = 256 loss chunk, within
-   the fp32 summation bound and the same bits on a repeat.  Each timed
+   magnitude and the same bits on a repeat; K1 timed at that training
+   shape beside SDPA's causal forward; K10 (the int8 input gradient) at
+   M = 2048 on the in_proj, o, fc_out and head shapes and at the head's
+   M = 256 loss chunk, within the fp32 summation bound and the same bits
+   on a repeat.  Each timed
    with its plain version, its bound and one library call (the backward of
    ``scaled_dot_product_attention(is_causal=True)``; a bf16 matmul of g s
    against weights dequantised before timing).
@@ -270,11 +272,13 @@ def _kernel_events(torch, prof):
 
 
 def device_ms(torch, fn, match: str, calls: int = 20):
-    """Mean device time (ms) a call of the kernels whose name contains
+    """Device time (ms) of one call of the kernels whose name contains
     ``match``, from torch.profiler over ``calls`` calls: the kernel alone,
     without the host time that CUDA events around a short call include.
-    None when the profiler records no such kernel in two tries (a trace
-    now and then comes back without device events)."""
+    Each matching kernel launches once a call, so a call takes the sum over
+    their names of each one's mean duration: a trace that lost some of its
+    device events (torch.profiler's traces now and then do) still gives
+    it.  None when two traces record no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -284,10 +288,12 @@ def device_ms(torch, fn, match: str, calls: int = 20):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in _kernel_events(torch, prof)
-                 if match in e.name]
-        if times:
-            return sum(times) / calls / 1e3
+        by_name = {}
+        for e in _kernel_events(torch, prof):
+            if match in e.name:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if by_name:
+            return sum(statistics.fmean(t) for t in by_name.values()) / 1e3
     return None
 
 
@@ -1729,9 +1735,14 @@ def phase_train_kernels(torch):
         for name, a, r in zip(("dq", "dk", "dv"), got, ref):
             check(torch.isfinite(a.float()).all().item(), f"K9 {label}: non-finite {name}")
             errs[name] = ((a.float() - r).abs().max() / r.abs().max()).item()
+        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
         print(f"[K9] {label}: max|kernel - plain| / max|plain|: "
-              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol {K9_REL_TOL})")
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol {K9_REL_TOL}); "
+              f"the same bits on a repeat: {same}")
         check(all(e <= K9_REL_TOL for e in errs.values()), f"K9 {label}: {errs}")
+        check(same, f"K9 {label}: a repeat gave other bits")
+        del again
         entries["flash_attention_bwd_dkv_kernel"]["max_abs_err"] = max(
             entries["flash_attention_bwd_dkv_kernel"]["max_abs_err"],
             max((a.float() - r).abs().max().item() for a, r in zip(got[1:], ref[1:])))
@@ -1770,6 +1781,7 @@ def phase_train_kernels(torch):
             library_is="backward of scaled_dot_product_attention(is_causal=True), all of dq, "
                        "dk, dv"))
         del lib_o, qt, kt, vt
+        _time_k1_training_shape(torch, F, q, k, v, hd)
     del q, k, v, do, o, lse
 
     # K10: path B's M = b s = 2048 on every int8 product of a layer and the head
@@ -1807,6 +1819,29 @@ def phase_train_kernels(torch):
     for wrapper, (name, replaces, source) in TRAIN_KERNELS.items():
         entries[wrapper].update(name=name, route="cuda", replaces=replaces, source=source)
     return entries
+
+
+def _time_k1_training_shape(torch, F, q, k, v, hd):
+    """K1 at a training layer's shape (phases 8 and 9 run it twice a layer,
+    forward and remat recompute): kernel alone, a call, plain, its bound and
+    SDPA's causal forward (the library call) on the same inputs."""
+    from magma_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
+
+    b, s, h, _ = q.shape
+    kw = dict(scale=hd ** -0.5, causal=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_err = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"])
+               .transpose(1, 2).float() - flash_attention_fwd(q, k, v, **kw)[0].float())
+    # s (s + 1) / 2 attended pairs a head, a QK^T and a PV product of 2 hd
+    # flops each; bytes: q, k, v read, O written, the fp32 lse
+    pairs = b * h * s * (s + 1) // 2
+    _timing(torch, "K1 training shape", b * s, lambda: flash_attention_fwd(q, k, v, **kw),
+            lambda: flash_attention_plain(q, k, v, **kw),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"]),
+            nbytes(q, k, v, q) + b * h * s * 4, 2 * 2 * hd * pairs, "flash_fwd_kernel",
+            library_is="scaled_dot_product_attention(is_causal=True)", plain_iters=5)
+    print(f"[K1 training shape] b={b} s={s} h={h} hd={hd} causal: max|SDPA - kernel| "
+          f"{lib_err.abs().max().item():.3e}")
 
 
 def _train_config(path):
@@ -1936,17 +1971,26 @@ def _compare_with_plain_path(torch, trainer, path, images, captions):
 
 def _profile_train_step(torch, trainer, batch, wall_ms, tag):
     """Device busy ms, kernel count and idle share (1 - busy / wall, wall the
-    median unprofiled step) of one train step, from torch.profiler."""
+    median unprofiled step) of one train step, from torch.profiler.  A
+    trace now and then comes back with about half the step's kernels whose
+    times sum to more than the traced step itself: such a trace is taken
+    again once, then reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(*batch)
-        torch.cuda.synchronize()
-    kernels = _kernel_events(torch, prof)
-    if not kernels:
-        print(f"[{tag}] one train step: device time not measured (the profiler saw no kernels)")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(*batch)
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+        kernels = _kernel_events(torch, prof)
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        if kernels and busy <= traced_ms:
+            break
+    else:
+        print(f"[{tag}] one train step: device time not measured (no profiler trace whose "
+              f"kernels fit in its step)")
         return
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -1954,6 +1998,10 @@ def _profile_train_step(torch, trainer, batch, wall_ms, tag):
           f"wall {wall_ms:.2f} ms (median unprofiled step), idle share {1 - busy / wall_ms:.3f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[{tag}]   {ms:.3f} ms  {name[:90]}")
+    attention = {match: sum(ms for name, ms in by_name.items() if match in name)
+                 for match in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    print(f"[{tag}]   attention kernels in the step: "
+          + ", ".join(f"{match} {ms:.3f} ms" for match, ms in attention.items()))
 
 
 def _time_optimizer(torch, trainer, batch, wall_ms, tag):

@@ -210,7 +210,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int r = 0; r < 4; ++r) a[kk][r] = gs_pair(gv[kk][r], sc[kk][r >> 1]);
       }
-      named_sync(CONSUMERS);  // the tile is whole; both warpgroups' last wgmma done
+      bar_sync(1, CONSUMERS);  // the tile is whole; both warpgroups' last wgmma done
       wgmma_fence();
       fence_acc(acc);
 #pragma unroll

@@ -1,7 +1,7 @@
-// Warp-level bf16 tensor-core helpers of the attention kernels (K1, K9a,
-// K9b): 16-byte cp.async copies, ldmatrix fragment loads and mma.sync
-// m16n8k16 (bf16 x bf16 -> fp32).  tma_wgmma.cuh reuses smem_addr and
-// pack_bf16x2.
+// Warp-level bf16 tensor-core helpers of the flash-attention forward (K1):
+// 16-byte cp.async copies, ldmatrix fragment loads and mma.sync m16n8k16
+// (bf16 x bf16 -> fp32).  tma_wgmma.cuh reuses smem_addr and pack_bf16x2,
+// int4_matmul.cu ldmatrix_x4_trans.
 //
 // Fragment conventions (PTX ISA, mma.m16n8k16 .row.col): a warp's 16 x 16 A
 // tile is four 8 x 8 matrices (rows 0-7 / 8-15 x k 0-7 / 8-15) and its

@@ -1,9 +1,13 @@
 // Hopper pipeline pieces shared by the int8 weight-only tiles of
-// int8_matmul.cu (K2a, K2b, K4a at M > 8), int8_matmul_dx.cu (K10) and the
-// W4A8 tile of int4_matmul.cu (K3, K4b at M > 8): mbarriers, TMA tile loads
-// and bulk copies, the 128-byte-swizzled shared memory descriptor, register
-// rebalancing, cluster barriers and wgmma.mma_async with A from registers
-// (bf16 x bf16 -> fp32, and s8 x s8 -> s32).
+// int8_matmul.cu (K2a, K2b, K4a at M > 8), int8_matmul_dx.cu (K10), the
+// W4A8 tile of int4_matmul.cu (K3, K4b at M > 8) and the flash backward of
+// flash_attn_bwd.cu (K9a, K9b): mbarriers, TMA tile loads (2-D and 4-D),
+// 4-D TMA tile stores and bulk copies, the 128-byte-swizzled shared memory
+// descriptors (K-major and MN-major), register rebalancing, named and
+// cluster barriers and wgmma.mma_async: A from registers (`rs`; bf16 x
+// bf16 -> fp32, and s8 x s8 -> s32) or from shared memory (`ss`, bf16,
+// K-major A); B K-major or, for `rs<1>` (the instruction's imm-trans-b),
+// MN-major.
 //
 // Fragment conventions (PTX ISA, wgmma .m64nNk16): warp w of the
 // warpgroup owns rows 16w .. 16w + 15 of the 64-row A and D tiles, laid out
@@ -17,6 +21,11 @@
 // 64 bf16 (128 bytes) per B column, the 16-byte chunk c of row r stored at
 // chunk c ^ (r % 8), 8-row groups 1024 bytes apart, the tile 1024-byte
 // aligned.  The k16 step kk starts 32 kk bytes into each row.
+//
+// An `ss` A is the same K-major tile over 64 rows of A.  An MN-major B
+// (`rs<1>`, descriptor sw128_desc_mn) is the same 128-byte-swizzled bytes
+// read the other way: each 128-byte row is one k, 64 consecutive N values,
+// so a (rows, hd) tile that is B K-major in X Y^T is B MN-major in P Y.
 //
 // The s8 products (.m64nNk32) use the same descriptor over rows of 128 int8
 // codes, the k32 step kk again 32 kk bytes into each row; A holds four
@@ -108,6 +117,36 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// box at element coordinates (c0 innermost .. c3) of a 4-D tensor map
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// shared -> global: the box at element coordinates (c0 innermost .. c3) of
+// a 4-D tensor map from the shared tile at src (its bytes laid out as a
+// load of that box writes them; parts past the tensor's edge are not
+// written), in the thread's bulk async group
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// closes the thread's bulk async group and waits until its stores have read
+// their shared memory (the block may then exit or reuse it)
+__device__ __forceinline__ void bulk_store_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) global -> shared
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
@@ -136,9 +175,14 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-// named barrier 1 over the `threads` threads that call it
-__device__ __forceinline__ void named_sync(int threads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+// named barrier `id` (1..15) over `threads` threads: some wait at it
+// (bar_sync), the others only arrive (bar_arrive) and go on
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // two int8 codes, at bits 0-7 and 16-23 of `pair` (the rest ignored), to
@@ -169,7 +213,7 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
 template <int NT, int ACC, typename Store>
 __device__ __forceinline__ void cluster_reduce(const float (&acc)[ACC], float* partial,
                                                int ctid, int rank, int split, Store store) {
-  named_sync(NT);  // both consumer warpgroups are done with the ring
+  bar_sync(1, NT);  // both consumer warpgroups are done with the ring
 #pragma unroll
   for (int i = 0; i < ACC; ++i) partial[i * NT + ctid] = acc[i];
   cluster_sync();
@@ -190,6 +234,17 @@ __device__ __forceinline__ void cluster_reduce(const float (&acc)[ACC], float* p
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   const uint64_t addr = smem_addr(p);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// descriptor of an MN-major 128-byte-swizzled bf16 tile at p: each
+// 128-byte row holds 64 consecutive M (or N) values of one k, 8-k groups
+// 1024 bytes apart (the stride byte offset), the next 64 M (or N) values
+// `lbo` bytes on (the leading byte offset; cute's canonical
+// ((T,8,m),(8,k)):((1,T,LBO),(8T,SBO)) for Major-MN SW128).  The k16 step
+// kk starts 2048 kk bytes on.  With trans-b = 1 wgmma reads B from it.
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) | (64ull << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -225,7 +280,39 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<48> {
+  static __device__ __forceinline__ void ss(float (&d)[24], uint64_t adesc, uint64_t bdesc,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(adesc), "l"(bdesc), "r"(accumulate));
+  }
+};
+
+template <>
 struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t adesc, uint64_t bdesc,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(adesc), "l"(bdesc), "r"(accumulate));
+  }
+
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -243,6 +330,7 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
+  template <int TB = 0>
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -251,7 +339,7 @@ struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -260,7 +348,7 @@ struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
   }
 };
 
@@ -295,6 +383,7 @@ struct Wgmma<192> {
 
 template <>
 struct Wgmma<256> {
+  template <int TB = 0>
   static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -307,7 +396,7 @@ struct Wgmma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -324,7 +413,7 @@ struct Wgmma<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
   }
 };
 
@@ -425,6 +514,22 @@ inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ba
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 4-D tensor (dims[0] innermost and contiguous; strides in bytes of
+// dims 1..3) read in boxes of box[0..3] elements, zero-filled past the edge
+inline bool encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                      const uint64_t (&dims)[4], const uint64_t (&strides)[3],
+                      const uint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(base), d, st, bx, elem_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -158,9 +158,10 @@ def _kernel_fn():
 
 def _check_kernel_inputs(q, k, v, kv_len, q_offset, named):
     """The kernels' contract: bf16 CUDA tensors on q's device read as 16-byte
-    cp.async rows (a unit head_dim stride, other strides multiples of 8
-    elements, a 16-byte aligned base), head_dim 128 or 256, q_offset >= 0,
-    an int32 kv_len on the same device.  Returns kv_len contiguous."""
+    cp.async rows (K1) or through TMA tensor maps (K9a, K9b): a unit
+    head_dim stride, other strides multiples of 8 elements, a 16-byte
+    aligned base; head_dim 128 or 256, q_offset >= 0, an int32 kv_len on
+    the same device.  Returns kv_len contiguous."""
     _check_shapes(q, k, v, kv_len)
     for name, t in named:
         if not t.is_cuda:

@@ -1,8 +1,10 @@
 """Device time of the port's int8 weight-only products at M > 8 (K2a, K2b,
-K4a) and of their input gradient (K10), compared between checkouts of the
-repository on one GPU.
+K4a), of their input gradient (K10), of the W4A8 products (K3, K4b) and of
+flash attention at the training shape (K1, K9a, K9b), compared between
+checkouts of the repository on one GPU.
 
-    python scripts/torch_int8_tiles_ab.py DIR [DIR ...] [--repeat 1] [--calls 20]
+    python scripts/torch_tiles_ab.py DIR [DIR ...] [--repeat 1] [--calls 20]
+        [--only K1,K9a,K9b]
 
 Each DIR is a checkout (for example its parent unpacked with ``git
 archive`` into ``build/parent``, and this one, ".").  Every run is a fresh
@@ -10,11 +12,15 @@ process that imports ``magma_tpu_torch`` from its DIR, builds that
 checkout's kernels and times each kernel wrapper alone (torch.profiler, the
 device time of the launches whose kernel is not an elementwise fill) at the
 shapes of the caption prefill (M = 192; K3 also at a 2048-row prompt) and
-of the QLoRA step (M = 2048, the head chunk M = 256), on seeded inputs made
-on the card (int4 weights quantised there from seeded normals), cycling through
-enough layers that the weights do not stay in the 50 MB L2.  The checkouts
-run in the order given, then in the reverse order, ``--repeat`` times over
-(A B B A).  Prints one JSON line per run and the medians per checkout.
+of the QLoRA step (M = 2048, the head chunk M = 256), and K1 and K9a/K9b
+at a training layer's attention (b 2, s 2048, 16 heads of 256, causal;
+M = b s), on seeded inputs made on the card (int4 weights quantised there
+from seeded normals), cycling through enough layers that the weights do
+not stay in the 50 MB L2.  A kernel is matched by a substring of its name
+that both trees' kernels share ("w4a8", "flash_fwd", "flash_bwd_dkv",
+"flash_bwd_dq", ...).  The checkouts run in the order given, then in the
+reverse order, ``--repeat`` times over (A B B A).  Prints one JSON line
+per run and the medians per checkout.
 """
 
 from __future__ import annotations
@@ -46,13 +52,35 @@ SHAPES = (
     ("K3 in_proj", "int4", 1, D, 3 * D + F_, 2),
     ("K4b o+fc_out", "int4_dual", 192, D + F_, D, 2),
     ("K4b o+fc_out", "int4_dual", 1, D + F_, D, 2),
+    # K1, K9: M = b s, then the heads and the head_dim in place of K and N
+    ("K1 fwd", "flash_fwd", 2 * 2048, 16, 256, 1),
+    ("K9a dK,dV", "flash_dkv", 2 * 2048, 16, 256, 1),
+    ("K9b dQ", "flash_dq", 2 * 2048, 16, 256, 1),
 )
+# the substrings of the kernel names each kind is timed by
+MATCH = {"flash_fwd": ("flash_fwd",), "flash_dkv": ("flash_bwd_dkv",),
+         "flash_dq": ("flash_bwd_dq",)}
 
 
 def _inputs(torch, quant, g, dev, kind, m, k, n, layers):
     """Seeded weights (layers of them), scales, inputs, and a call of the
-    kind's kernel wrapper on layer i: (weights, scales, call)."""
+    kind's kernel wrapper on layer i: (weights, scales, call); for K1 and
+    K9 the seeded q, k, v, dO of one layer's attention: (q, lse, call)."""
     bf16 = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    if kind.startswith("flash"):
+        from magma_tpu_torch.ops import flash_attention as fa
+
+        b, s, h, hd = 2, m // 2, k, n
+        q, kk, v, do = (bf16(b, s, h, hd) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, kk, v, scale=hd ** -0.5, causal=True)
+        lse = lse.contiguous()
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        kw = dict(scale=hd ** -0.5, causal=True, q_offset=0)
+        if kind == "flash_fwd":
+            return q, lse, lambda i: fa.flash_attention_kernel(q, kk, v, None, **kw)
+        fn = (fa.flash_attention_bwd_dkv_kernel if kind == "flash_dkv"
+              else fa.flash_attention_bwd_dq_kernel)
+        return q, lse, lambda i: fn(q, kk, v, do, lse, di, None, **kw)
     if kind.startswith("int4"):
         packs = [quant.quantize_int4(torch.randn((k, n), generator=g, device=dev) * 0.02,
                                      compiled=True) for _ in range(layers)]
@@ -94,10 +122,10 @@ def _child(tree: Path, calls: int, only: tuple) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     out = {"tree": str(tree)}
     for label, kind, m, k, n, layers in SHAPES:
-        if only and not label.startswith(only):
+        if only and label.split()[0] not in only:
             continue
         wq, s, call = _inputs(torch, quant, g, dev, kind, m, k, n, layers)
-        match = ("w4a8",) if kind.startswith("int4") else ("int8", "gemv", "mma")
+        match = MATCH.get(kind, ("w4a8",) if kind.startswith("int4") else ("int8", "gemv", "mma"))
         it = itertools.cycle(range(layers))
         for _ in range(3):
             call(next(it))
@@ -106,13 +134,19 @@ def _child(tree: Path, calls: int, only: tuple) -> dict:
             for _ in range(calls):
                 call(next(it))
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                  and any(word in e.name for word in match)]
-        out[f"{label} M={m}"] = (sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
-                                 if events else None)
+        # each matching kernel launches once a call: a call takes the sum of
+        # their mean durations, which a trace that lost some of its device
+        # events still gives
+        by_name = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(word in e.name for word in match)):
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+        out[f"{label} M={m}"] = (sum(statistics.fmean(t) for t in by_name.values())
+                                 if by_name else None)
         if kind.startswith("int4") and m > 8:  # the activation pre-pass's share
             out[f"{label} M={m} pre-pass"] = sum(
-                e.time_range.elapsed_us() for e in events if "quantize" in e.name) / calls / 1e3
+                statistics.fmean(t) for name, t in by_name.items() if "quantize" in name)
         del wq, s
         torch.cuda.empty_cache()
     return out
@@ -124,7 +158,8 @@ def main() -> int:
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--only", default="",
-                    help="comma-separated label prefixes to time (e.g. K3,K4b); all by default")
+                    help="comma-separated kernel ids to time (e.g. K3,K4b: a label's first "
+                         "word); all by default")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
@@ -132,6 +167,8 @@ def main() -> int:
         print(json.dumps(_child(args.child.resolve(), args.calls, only)))
         return 0
     trees = [t.resolve() for t in args.trees]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip())
     order = (trees + trees[::-1]) * args.repeat
     runs = []
     for tree in order:

@@ -803,6 +803,100 @@ def test_flash_attention_grad_runs_k9(dev):
         assert (a.float() - r).abs().max().item() <= K9_REL_TOL * r.abs().max().item()
 
 
+def _bwd_inputs(dev, b, s, h, hd, seed):
+    r = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(r.standard_normal((b, s, h, hd), dtype=np.float32))
+                   .to(dev, torch.bfloat16) for _ in range(4))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", ["causal_hd256", "kv_len_masked_row_hd128", "q_offset_hd256",
+                                  "not_causal_hd128"])
+def test_flash_backward_kernels_repeat_bit_for_bit(case, dev):
+    """Each gradient element is one thread's fixed-order sum: two runs on the
+    same inputs give the same bits."""
+    from magma_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    c = BWD_CASES[case]
+    q, k, v = _qkv(dev, c["b"], c["s"], c.get("s_k", c["s"]), c["hd"], seed=6)
+    kv_len = (None if c["kv_len"] is None
+              else torch.tensor(c["kv_len"], dtype=torch.int32, device=dev))
+    kw = dict(scale=c["hd"] ** -0.5, causal=c["causal"], kv_len=kv_len, q_offset=c["q_offset"])
+    o, lse = flash_attention_plain(q, k, v, **kw)
+    do = torch.randn(o.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(7)
+                     ).to(torch.bfloat16)
+    first = flash_attention_bwd(q, k, v, o, lse.contiguous(), do, **kw)
+    second = flash_attention_bwd(q, k, v, o, lse.contiguous(), do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_flash_backward_kernels_read_path_b_strided_v(dev):
+    """Path B hands K9a/K9b v as a view of the fused in_proj output ([q | k |
+    v | fc_in] columns, an s stride of 3 D + 4 D): the tensor maps read it
+    in place, to the bits of the same values made contiguous, and within
+    the tolerance of the plain backward."""
+    from magma_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+
+    b, s, h, hd = 2, 256, 4, 256
+    d = h * hd
+    q, k, _, do = _bwd_inputs(dev, b, s, h, hd, seed=8)
+    fused = torch.randn((b, s, 3 * d + 4 * d), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9)).to(torch.bfloat16)
+    v = fused[..., 2 * d:3 * d].reshape(b, s, h, hd)
+    assert v.stride() == (s * 7 * d, 7 * d, hd, 1)
+    kw = dict(scale=hd ** -0.5, causal=True, kv_len=None, q_offset=0)
+    o, lse = flash_attention_plain(q, k, v, **kw)
+    lse = lse.contiguous()
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    dense = flash_attention_bwd(q, k, v.contiguous(), o, lse, do, **kw)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, a, a_dense, r in zip(("dq", "dk", "dv"), got, dense, ref):
+        assert torch.equal(a, a_dense), name
+        assert (a.float() - r).abs().max().item() <= K9_REL_TOL * r.abs().max().item(), name
+
+
+# the wgmma forms of csrc/tma_wgmma.cuh that K9a/K9b build on, one
+# warpgroup each (magma_wgmma_forms_check in csrc/flash_attn_bwd.cu):
+# id -> (form, N, K).  Forms 0, 1: A and B from shared memory, both K-major
+# (D = A B^T, B given as (N, K)); 2, 3: A from registers, B MN-major through
+# trans-b (D = A B, B given as (K, N)).  Small integers make every sum exact,
+# so D equals torch.matmul's fp32 result bit for bit.
+WGMMA_FORMS = {
+    "ss_n64_k256": (0, 64, 256),
+    "ss_n64_k128": (0, 64, 128),
+    "ss_n48_k256": (1, 48, 256),
+    "rs_trans_b_n256_k64": (2, 256, 64),
+    "rs_trans_b_n256_k48": (2, 256, 48),
+    "rs_trans_b_n256_k32": (2, 256, 32),
+    "rs_trans_b_n128_k64": (3, 128, 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WGMMA_FORMS))
+def test_wgmma_forms_match_matmul(name, dev):
+    import ctypes
+
+    from magma_tpu_torch.cuda_build import load_library
+
+    form, n, k = WGMMA_FORMS[name]
+    r = np.random.default_rng(form * 1000 + n + k)
+    a = torch.from_numpy(r.integers(-4, 5, (64, k)).astype(np.float32)).to(dev, torch.bfloat16)
+    b_shape = (n, k) if form < 2 else (k, n)
+    b = torch.from_numpy(r.integers(-4, 5, b_shape).astype(np.float32)).to(dev, torch.bfloat16)
+    d = torch.full((64, n), float("nan"), dtype=torch.float32, device=dev)
+    fn = load_library().magma_wgmma_forms_check
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), form, k,
+             torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0, f"cudaError {err}"
+    ref = torch.matmul(a.float(), b.float().T if form < 2 else b.float())
+    torch.cuda.synchronize()
+    assert torch.equal(d, ref), (d - ref).abs().max().item()
+
+
 @pytest.mark.parametrize("shape", [(5, 256, 384), (9, 384, 640), (192, 512, 1024),
                                    (2048, 4096, 4096), (256, 4096, 50304)],
                          ids=["small", "m9_ragged_k", "m192", "qlora_o", "qlora_head"])
