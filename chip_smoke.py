@@ -48,8 +48,10 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    at pos = 0 (the token alone).  Each case timed with its plain version,
    its bound and the same ops as a chain of bf16 PyTorch calls over
    weights dequantised before timing; then 28 K7 launches against one K8
-   launch for the same step, and the time of one grid barrier of K8's grid
-   alone.
+   launch for the same step, the per-phase breakdown of K8 (int4 and int8,
+   bf16 cache, v1, pos 180: its stamped build's %globaltimer stamps, each
+   phase's slowest block against the barrier before it, summed over the 28
+   layers), and the time of one grid barrier of K8's grid alone.
 5. The int8 caption path: the same model after
    ``quantize_for_serving(bits=8)`` answers the same three requests; every
    kernel's launches are checked exactly against the steps taken (each
@@ -1033,7 +1035,7 @@ def phase_decode_layer_kernels(torch):
                                 lambda: _chain_step(torch, rlib, vecs, ins["fused"], ins["x"],
                                                     ins["u"], sincos, kc, vc, kvs, pos_t,
                                                     [layer], kw),
-                                n_bytes, ops, "decode_layers_kernel", ops_per_s=ops_rate,
+                                n_bytes, ops, "decode_stream_kernel", ops_per_s=ops_rate,
                                 library_is="the same ops as a chain of bf16 PyTorch calls")
                             main = fmt == "int4" and kv == "bf16" and recipe == "v1" and with_in
                             report("decode_layer_kernel", label, errs, ok,
@@ -1059,7 +1061,7 @@ def phase_decode_layer_kernels(torch):
                                  lambda: _chain_step(torch, rlib, vecs, ins["fused"], ins["x"],
                                                      ins["u"], sincos, kc, vc, kvs, pos_t,
                                                      range(L), kw),
-                                 n_bytes, ops, "decode_layers_kernel", ops_per_s=ops_rate,
+                                 n_bytes, ops, "decode_stream_kernel", ops_per_s=ops_rate,
                                  library_is="the same ops as a chain of bf16 PyTorch calls",
                                  plain_iters=2)
                     main = fmt == "int4" and kv == "bf16" and recipe == "v1" and pos == POS
@@ -1068,6 +1070,7 @@ def phase_decode_layer_kernels(torch):
                            dict(tm, library_ms=None, chain_ms=tm["library_ms"]) if main else None)
                     if main or (fmt == "int8" and kv == "bf16" and recipe == "v1" and pos == POS):
                         _k7_chain_vs_k8(torch, dl, args, kw, L, label)
+                        _k8_phase_breakdown(torch, dl, args, kw, label, got)
         del dual, w_in, ad1, ad2, vecs, lib, lib_v1, recipes
         gc.collect()
         torch.cuda.empty_cache()
@@ -1079,20 +1082,23 @@ def phase_decode_layer_kernels(torch):
 
 def _grid_barrier_cost(torch, L):
     """What K8's grid barriers cost alone: cooperative launches of K8's grid
-    that cross n barriers and do nothing else (``magma_grid_sync_probe``),
-    timed by CUDA events; the slope over n is the cost of one barrier."""
+    that cross n barriers of K8's kind and do nothing else
+    (``magma_grid_sync_probe``), timed by CUDA events; the slope over n is
+    the cost of one barrier."""
     import ctypes
 
     from magma_tpu_torch.cuda_build import load_library
+    from magma_tpu_torch.ops import decode_layer as dl
 
     probe = load_library().magma_grid_sync_probe
-    probe.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     probe.restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
-    per_step = 9 * (L - 1) + 6  # K8's barriers in an L-layer step
+    bar = torch.zeros(1, dtype=torch.int32, device="cuda")
+    per_step = dl.stream_barriers(L, adapters=True)  # K8's barriers in a v1 L-layer step
 
     def run(n):
-        err = probe(n, stream)
+        err = probe(n, bar.data_ptr(), stream)
         check(err == 0, f"grid barrier probe failed: cudaError {err}")
 
     ms = {n: cuda_ms(lambda n=n: run(n), iters=20) for n in (0, per_step, 10 * per_step)}
@@ -1101,6 +1107,29 @@ def _grid_barrier_cost(torch, L):
           f"of 20; launches of 0, {per_step} and {10 * per_step} barriers: "
           + ", ".join(f"{v:.4f} ms" for v in ms.values())
           + f"); {per_step} a {L}-layer step: {per_step * us / 1e3:.4f} ms")
+
+
+def _k8_phase_breakdown(torch, dl, args, kw, label, got):
+    """Where K8's time goes: its stamped build (``magma_decode_layers`` with
+    a stamps buffer; never on the main path) writes each block's
+    %globaltimer at the start and the end of every phase of every layer.
+    Per phase, summed over the layers: the slowest block's end minus the
+    barrier's release (the first block's start), and the barrier after it;
+    the median of 5 launches after a warm one.  The stamped launch must give
+    K8's bits."""
+    runs = []
+    for i in range(6):
+        *outs, stamps = dl.decode_all_layers_stamped(*args, **kw)
+        torch.cuda.synchronize()
+        if i == 0:
+            check(all(torch.equal(a, b) for a, b in zip(outs, got)),
+                  f"{label}: the stamped build differs from K8")
+        else:
+            runs.append(dl.phase_breakdown(stamps))
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    print(f"[{label}] phase breakdown (ms over {args[4].shape[0]} layers, globaltimer stamps, "
+          f"median of 5; the phase: slowest block's end - barrier release; then the barrier): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
 
 
 def _k7_chain_vs_k8(torch, dl, args, kw, L, label):

@@ -1,6 +1,7 @@
-// The phases of a decode layer's boundary, shared by boundary.cu (K6) and
-// decode_layer.cu (K7, K8): everything between one layer's attention and
-// the next layer's, for m <= 8 bf16 rows,
+// The phases of a decode layer's boundary, boundary.cu's (K6; the streamed
+// decode_layer.cu, K7 and K8, repeats their arithmetic with its own tiles):
+// everything between one layer's attention and the next layer's, for m <= 8
+// bf16 rows,
 //   a = bf16(ctx @ W_o) [+ bf16(o_bias)] [+ bf16(adapter_attn(a or u_in))]
 //   m = bf16(mh @ W_fc_out) + bf16(b_fc_out) [+ bf16(adapter_mlp(m or u_in))]
 //   y = x + a + m                                   (bf16 adds, in that order)
@@ -30,8 +31,7 @@
 //   G  fused                each element sums its terms in order
 // No float atomics: every sum has a fixed order, so results repeat from run
 // to run.  What one phase writes, the next reads after the grid barrier,
-// which orders the writes before the reads at device scope: in K8 the same
-// buffers are rewritten for every layer of one launch.
+// which orders the writes before the reads at device scope.
 
 #pragma once
 

@@ -14,8 +14,10 @@ with the int4 (``gptj.quantize_lm_params_int4``) or the int8
 (``gptj.quantize_lm_params``) serving stacks.  ``decode_layer_fused`` (K7)
 runs one layer, ``decode_all_layers_fused`` (K8) all of them and returns
 the step's hidden state and every layer's new K/V rows.  Both kernels are
-``csrc/decode_layer.cu``: one cooperative launch, the boundary phases shared
-with K6 (``csrc/layer_phases.cuh``).
+``csrc/decode_layer.cu``: one cooperative launch whose producer warps stream
+every weight tile through TMA ahead of the phase that consumes it, with K6's
+arithmetic (``stream_plan`` and ``stream_schedule`` mirror its work
+partition).
 
 Each public entry launches its kernel on CUDA tensors where
 ``declayer_supported`` holds and raises on a CUDA input it does not take;
@@ -53,6 +55,14 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM = 256     # the kernels' head_dim: one thread a dimension
 ATT_CHUNK = 16     # cache positions of one attention item (csrc/decode_layer.cu)
 MAX_LEN_ALIGN = 64  # the gate's max_len multiple, as JAX's _pick_sblk asks
+# csrc/decode_layer.cu: a weight tile is TILE_ROWS rows (int4: packed rows,
+# one W4A8 group) x TILE_COLS columns; a phase's activations fit XBUF_BYTES
+# of shared memory (int4 codes with XSCALES block scales, or bf16 rows)
+TILE_ROWS, TILE_COLS = 256, 128
+XBUF_BYTES, XSCALES = 40960, 256
+# the launch's phases (each closed by a grid barrier), as the stamped build
+# times them
+PHASES = ("attention", "dual", "adapter_down", "adapter_up+residual", "ln+in_proj")
 
 
 def _weight_format(w) -> Optional[str]:
@@ -71,13 +81,22 @@ def _adapter_bk(D: int, DH: int) -> Optional[int]:
     return next((b for b in (512, 384, 256, 128) if D % b == 0 and DH % b == 0), None)
 
 
+def _stream_fits(D: int, F_: int, wf: str) -> bool:
+    """Whether a phase's activations fit the kernel's shared memory: the
+    dual's codes (int4) or bf16 rows (int8) of ctx and mh, and the LN's y,
+    u and u's codes (``magma_decode_layers``'s ``fits``)."""
+    dual = D + F_ if wf == "int4" else 2 * (D + F_)
+    return dual <= XBUF_BYTES and (D + F_) // 256 <= XSCALES and 5 * D <= XBUF_BYTES
+
+
 def _layer_geometry_ok(n_heads, head_dim, d_ff, max_len, w_out_proj) -> bool:
     """The gate's conditions on the layer itself and its dual payload."""
     wf = _weight_format(w_out_proj)
     if wf is None or head_dim != HEAD_DIM or n_heads % 8:
         return False
     D = n_heads * head_dim
-    if D % INT4_GROUP or d_ff % INT4_GROUP or max_len % MAX_LEN_ALIGN:
+    if (D % INT4_GROUP or d_ff % INT4_GROUP or max_len % MAX_LEN_ALIGN
+            or not _stream_fits(D, d_ff, wf)):
         return False
     if wf == "int4":
         return (D % (2 * INT4_GROUP) == 0 and d_ff % (2 * INT4_GROUP) == 0
@@ -99,7 +118,9 @@ def declayer_supported(*, b, s, n_heads, head_dim, d_ff, max_len, w_in_proj, w_o
     its backend test: b = s = 1, matching int4 or int8 in_proj and out_proj
     payloads, head_dim 256, n_heads a multiple of 8, D and F multiples of
     256 (512 for int4), max_len a multiple of 64, N of the in_proj a
-    multiple of 128."""
+    multiple of 128; and the port's own bound, that a phase's activations
+    fit the kernel's shared memory (``_stream_fits``: GPT-J 6B's D 4096 and
+    F 16384 do in both formats)."""
     wf = _weight_format(w_out_proj)
     return (wf is not None and _weight_format(w_in_proj) == wf and b == 1 and s == 1
             and bool(has_bvecs) and _layer_geometry_ok(n_heads, head_dim, d_ff, max_len, w_out_proj)
@@ -213,14 +234,15 @@ def decode_all_layers_plain(fused0, x0, u0, sincos, k_cache, v_cache, kv_scales,
 # ---------------------------------------------------------------------------
 
 # the C entry's arrays (csrc/decode_layer.cu, enums Ints and Ptrs), in order
-_INTS = ("layers", "l0", "l1", "in_until", "heads", "d", "f", "ni", "max_len", "rotary", "kc",
-         "int4", "kv8", "dh_a", "src_a", "dh_m", "src_m", "head_dim", "chunk")
+_INTS = ("layers", "l0", "l1", "in_until", "heads", "d", "f", "ni", "max_len", "rotary", "int4",
+         "kv8", "dh_a", "src_a", "dh_m", "src_m", "head_dim", "chunk", "n_counters", "n_terms")
 _FLOATS = ("scale", "eps")
 _ADAPTER = ("wd", "sd", "bd", "wu", "su", "bu", "h")
 _PTRS = ("pos", "sin", "cos", "fused_in", "x_in", "u_in", "k_cache", "v_cache", "k_scale",
          "v_scale", "qd", "sd", "b_fc_in", "b_fc_out", "ln_g", "ln_b", "o_bias",
-         *(f"a_{k}" for k in _ADAPTER), *(f"m_{k}" for k in _ADAPTER), "qi", "si", "y", "u",
-         "fused", "k_new", "v_new", "part", "terms_d", "terms_i", "ctx", "mh", "ab", "mb")
+         *(f"a_{k}" for k in _ADAPTER), *(f"m_{k}" for k in _ADAPTER), "qi", "si", "y", "y2", "u",
+         "fused", "k_new", "v_new", "part", "terms", "ctx", "mh", "ab", "mb", "codes", "xsc",
+         "counters", "stamps")
 
 
 @functools.cache
@@ -234,10 +256,91 @@ def _decode_fn():
     return fn
 
 
-def _int8_chunk(D: int, F_: int) -> int:
-    """Rows of one W8A16 term: the widest of 2048, 1024, 512, 256 that
-    divides D and F (the gate makes both multiples of 256)."""
-    return next(c for c in (2048, 1024, 512, 256) if D % c == 0 and F_ % c == 0)
+def decode_layers_grid() -> int:
+    """Blocks of a K7/K8 launch on the current device (one per SM)."""
+    from magma_tpu_torch.cuda_build import load_library
+
+    blocks = ctypes.c_int(0)
+    err = load_library().magma_decode_layers_grid(ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"the decode-layer kernel cannot be launched here: cudaError {err}, "
+                           f"{blocks.value} co-resident blocks")
+    return blocks.value
+
+
+def stream_plan(*, d: int, f: int, ni: int, h: int, wf: str, dh=(0, 0)) -> Dict:
+    """The work partition of ``csrc/decode_layer.cu`` (its ``make_plan``):
+    each product's K chunks and 128-column tiles, and the scratch the launch
+    needs: arrival counters (one a column tile for the dual or the in_proj,
+    then one a head for the attention) and chunk terms (fp32) in two
+    regions, ``terms_a`` for the dual's and adapter up's, then adapter
+    down's and the in_proj's, so no phase writes a region the grid may
+    still be reading.  ``dh``: the attention and mlp adapters' hidden
+    widths (0: absent)."""
+    rows = 2 * TILE_ROWS if wf == "int4" else TILE_ROWS  # activation values a K chunk
+    cup = [-(-k // TILE_ROWS) for k in dh]
+    cdn = d // TILE_ROWS
+    terms_a = max((d + f) // rows * d, 2 * max(cup) * d)
+    terms_b = max(2 * cdn * max(dh), d // rows * ni)
+    return dict(
+        cho=d // rows, chf=f // rows, td=d // TILE_COLS, cdn=cdn,
+        tdn=[k // TILE_COLS for k in dh], cup=cup, cin=d // rows, ti=ni // TILE_COLS,
+        counters=max(d, ni) // TILE_COLS + h, terms_a=terms_a,
+        terms=terms_a + terms_b)
+
+
+def stream_schedule(plan: Dict, *, h: int, pos: int, grid: int, l0: int, l1: int,
+                    in_until: int):
+    """The launch's items in the order each block takes them, as the
+    kernel's producer walks them: ``{block: [(layer, kind, item, tile), ...]}``
+    with ``tile`` the ring tile the item reads (None for an attention item
+    at pos 0, which folds its head without a cache chunk).  The kinds, one
+    a phase, in order: attention, dual, adapter_down, adapter_up, in_proj.
+    Items i = b, b + grid, ... of each kind, rotated by the items of the
+    kinds before."""
+    nck = -(-pos // ATT_CHUNK)
+    nci = max(nck, 1)
+    out = {b: [] for b in range(grid)}
+    off = 0
+
+    def walk(layer, phase, n, tile_of):
+        nonlocal off
+        for b in range(grid):
+            for i in range((b - off) % grid, n, grid):
+                out[b].append((layer, phase, i, tile_of(i)))
+        off = (off + n) % grid
+
+    adapters = any(plan["tdn"])
+    for layer in range(l0, l1):
+        walk(layer, "attention", h * nci,
+             lambda i: ("cache", i // nci, i % nci) if nck else None)
+        walk(layer, "dual", (plan["cho"] + plan["chf"]) * plan["td"],
+             lambda i: ("dual", i // plan["td"], i % plan["td"]))
+        if adapters:
+            n0 = plan["cdn"] * plan["tdn"][0]
+
+            def down(i):
+                a, j = (0, i) if i < n0 else (1, i - n0)
+                return ("wd", a, j // plan["tdn"][a], j % plan["tdn"][a])
+
+            walk(layer, "adapter_down", n0 + plan["cdn"] * plan["tdn"][1], down)
+            u0 = plan["cup"][0] * plan["td"]
+
+            def up(i):
+                a, j = (0, i) if i < u0 else (1, i - u0)
+                return ("wu", a, j // plan["td"], j % plan["td"])
+
+            walk(layer, "adapter_up", u0 + plan["cup"][1] * plan["td"], up)
+        if layer < in_until:
+            walk(layer, "in_proj", plan["cin"] * plan["ti"],
+                 lambda i: ("in_proj", i // plan["ti"], i % plan["ti"]))
+    return out
+
+
+def stream_barriers(n_layers: int, adapters: bool) -> int:
+    """Grid barriers of a K8 launch: after phases 1, 2 (and 3, 4 with an
+    adapter) of every layer and after phase 5 of all but the last."""
+    return n_layers * (4 if adapters else 2) + n_layers - 1
 
 
 def _check_stack(name: str, t: torch.Tensor, shape, dtype, device, align: int = 16) -> None:
@@ -249,9 +352,10 @@ def _check_stack(name: str, t: torch.Tensor, shape, dtype, device, align: int = 
 
 def _launch(mode: str, *, fused_in, x, u_in, sincos, k_cache, v_cache, kv_scales, cache_pos,
             w_dual, w_in, b_fc_in, b_fc_out, ln_g, ln_b, l0, l1, in_until, n_heads, fz_attn,
-            attn_src, fz_mlp, mlp_src, o_bias, scale, ln_eps):
+            attn_src, fz_mlp, mlp_src, o_bias, scale, ln_eps, stamps=None):
     """Check every operand and launch ``csrc/decode_layer.cu`` over layers
-    [l0, l1).  Returns (y, u, fused or None, k_new, v_new)."""
+    [l0, l1); ``stamps`` (an int64 (grid, l1 - l0, 5, 2) tensor) launches the
+    stamped build.  Returns (y, u, fused or None, k_new, v_new)."""
     dev = fused_in.device
     bf = torch.bfloat16
     L, b, max_len, h, hd = k_cache.shape
@@ -333,20 +437,23 @@ def _launch(mode: str, *, fused_in, x, u_in, sincos, k_cache, v_cache, kv_scales
     fused = torch.empty((1, ni), dtype=bf, device=dev) if ni else None
     k_new = torch.empty((n_rows, 1, D), dtype=bf, device=dev)
     v_new = torch.empty((n_rows, 1, D), dtype=bf, device=dev)
-    kc = _int8_chunk(D, F_)
-    n_terms_d = (D + F_) // (2 * INT4_GROUP) if wf == "int4" else (D + F_) // kc
-    n_terms_i = D // (2 * INT4_GROUP) if wf == "int4" else D // kc
-    sizes = {  # name: (elements, dtype)
-        "part": (h * (max_len // ATT_CHUNK) * (hd + 2), torch.float32),
-        "terms_d": (n_terms_d * D, torch.float32),
-        "terms_i": (n_terms_i * ni, torch.float32),
-        "ctx": (D, bf), "mh": (F_, bf), "ab": (D, bf), "mb": (D, bf),
-        "a_h": (adapters["a"][0], bf), "m_h": (adapters["m"][0], bf),
+    plan = stream_plan(d=D, f=F_, ni=ni, h=h, wf=wf,
+                       dh=(adapters["a"][0], adapters["m"][0]))
+    if stamps is not None:
+        _check_stack("stamps", stamps, (decode_layers_grid(), l1 - l0, len(PHASES), 2),
+                     torch.int64, dev)
+    sizes = {  # name: (elements, bytes an element)
+        "part": (h * (max_len // ATT_CHUNK) * (hd + 2), 4),
+        "terms": (plan["terms"], 4),
+        "y2": (D, 2), "ctx": (D, 2), "mh": (F_, 2), "ab": (D, 2), "mb": (D, 2),
+        "a_h": (adapters["a"][0], 2), "m_h": (adapters["m"][0], 2),
+        "codes": (D + F_, 1), "xsc": ((D + F_) // 256, 4),
+        "counters": (plan["counters"] + 1, 4),  # and the grid barrier's
     }
     offsets, total = {}, 0
-    for name, (n, dt) in sizes.items():
+    for name, (n, es) in sizes.items():
         offsets[name] = total
-        total += -(-n * (4 if dt == torch.float32 else 2) // 256) * 256  # 256-byte aligned
+        total += -(-n * es // 256) * 256  # 256-byte aligned
     work = torch.empty(total, dtype=torch.uint8, device=dev)
     ptrs = {name: (work.data_ptr() + offsets[name] if sizes[name][0] else None)
             for name in sizes}
@@ -370,11 +477,12 @@ def _launch(mode: str, *, fused_in, x, u_in, sincos, k_cache, v_cache, kv_scales
                 v_scale=ptr(kv_scales[1]) if kv8 else None, qd=ptr(qd), sd=ptr(sd),
                 b_fc_in=ptr(b_fc_in), b_fc_out=ptr(b_fc_out), ln_g=ptr(ln_g), ln_b=ptr(ln_b),
                 o_bias=ptr(o_bias), qi=ptr(qi), si=ptr(si), y=ptr(y), u=ptr(u),
-                k_new=ptr(k_new), v_new=ptr(v_new))
+                k_new=ptr(k_new), v_new=ptr(v_new), stamps=ptr(stamps))
     ints = dict(layers=L, l0=l0, l1=l1, in_until=in_until, heads=h, d=D, f=F_, ni=ni,
-                max_len=max_len, rotary=rd, kc=kc, int4=int(wf == "int4"), kv8=int(kv8),
+                max_len=max_len, rotary=rd, int4=int(wf == "int4"), kv8=int(kv8),
                 dh_a=adapters["a"][0], src_a=adapters["a"][1], dh_m=adapters["m"][0],
-                src_m=adapters["m"][1], head_dim=hd, chunk=ATT_CHUNK)
+                src_m=adapters["m"][1], head_dim=hd, chunk=ATT_CHUNK,
+                n_counters=plan["counters"], n_terms=plan["terms"])
     iv = (ctypes.c_longlong * len(_INTS))(*(ints[k] for k in _INTS))
     fv = (ctypes.c_float * len(_FLOATS))(float(scale), float(ln_eps))
     pv = (ctypes.c_void_p * len(_PTRS))(*(ptrs[k] for k in _PTRS))
@@ -434,6 +542,50 @@ def decode_all_layers_kernel(fused0, x0, u0, sincos, k_cache, v_cache, kv_scales
 
 for _fn in (decode_layer_kernel, decode_all_layers_kernel):
     _fn.launches = 0
+
+
+def decode_all_layers_stamped(fused0, x0, u0, sincos, k_cache, v_cache, kv_scales, cache_pos,
+                              w_dual, w_in, b_fc_in, b_fc_out, ln_g, ln_b, *, n_heads,
+                              fz_attn=None, attn_src="out", fz_mlp=None, mlp_src="out",
+                              o_bias=None, scale, ln_eps=1e-5):
+    """For measurement only, never on the serving path: K8's stamped build,
+    whose every block writes the card's %globaltimer (ns) at the start and
+    the end of each phase of each layer.  The arguments as
+    ``decode_all_layers_kernel``; CUDA tensors only.  Returns (y, k_new,
+    v_new, stamps (grid, L, 5, 2) int64; phases in ``PHASES`` order, 0 where
+    a layer has no such phase).  Counts no launch."""
+    L = k_cache.shape[0]
+    stamps = torch.zeros((decode_layers_grid(), L, len(PHASES), 2), dtype=torch.int64,
+                         device=fused0.device)
+    y, _, _, k_new, v_new = _launch(
+        "all", fused_in=fused0, x=x0, u_in=u0, sincos=sincos, k_cache=k_cache, v_cache=v_cache,
+        kv_scales=kv_scales, cache_pos=cache_pos, w_dual=w_dual, w_in=w_in, b_fc_in=b_fc_in,
+        b_fc_out=b_fc_out, ln_g=ln_g, ln_b=ln_b, l0=0, l1=L, in_until=L - 1, n_heads=n_heads,
+        fz_attn=fz_attn, attn_src=attn_src, fz_mlp=fz_mlp, mlp_src=mlp_src, o_bias=o_bias,
+        scale=scale, ln_eps=ln_eps, stamps=stamps)
+    return y, k_new, v_new, stamps
+
+
+def phase_breakdown(stamps: torch.Tensor) -> Dict[str, float]:
+    """Per phase, summed over the layers, in ms: the phase's time (the
+    slowest block's end minus the first block's start, which is the release
+    of the barrier before it) and the barrier's after it (the first block's
+    start of the next phase minus the slowest end).  ``stamps`` as
+    ``decode_all_layers_stamped`` returns them; phases a layer lacks (all
+    blocks 0) count nothing."""
+    st = stamps.to(torch.float64).cpu()
+    L = st.shape[1]
+    out = {name: 0.0 for name in PHASES}
+    out.update({f"{name} barrier": 0.0 for name in PHASES})
+    seq = [(l, ph) for l in range(L) for ph in range(len(PHASES)) if bool((st[:, l, ph] > 0).all())]
+    for i, (l, ph) in enumerate(seq):
+        start, end = st[:, l, ph, 0].min(), st[:, l, ph, 1].max()
+        out[PHASES[ph]] += float(end - start) / 1e6
+        if i + 1 < len(seq):
+            nl, nph = seq[i + 1]
+            out[f"{PHASES[ph]} barrier"] += float(st[:, nl, nph, 0].min() - end) / 1e6
+    out["total"] = float(st[:, seq[-1][0], seq[-1][1], 1].max() - st[:, 0, 0, 0].min()) / 1e6
+    return out
 
 
 # ---------------------------------------------------------------------------

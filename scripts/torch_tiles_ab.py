@@ -1,7 +1,7 @@
 """Device time of the port's int8 weight-only products at M > 8 (K2a, K2b,
-K4a), of their input gradient (K10), of the W4A8 products (K3, K4b) and of
-flash attention at the training shape (K1, K9a, K9b), compared between
-checkouts of the repository on one GPU.
+K4a), of their input gradient (K10), of the W4A8 products (K3, K4b), of
+flash attention at the training shape (K1, K9a, K9b) and of the whole-layer
+decode step (K8), compared between checkouts of the repository on one GPU.
 
     python scripts/torch_tiles_ab.py DIR [DIR ...] [--repeat 1] [--calls 20]
         [--only K1,K9a,K9b]
@@ -21,11 +21,20 @@ that both trees' kernels share ("w4a8", "flash_fwd", "flash_bwd_dkv",
 "flash_bwd_dq", ...).  The checkouts run in the order given, then in the
 reverse order, ``--repeat`` times over (A B B A).  Prints one JSON line
 per run and the medians per checkout.
+
+The K8 rows run ``decode_all_layers_fused`` over seeded GPT-J 6B stacks (28
+layers, int4 or int8, the v1 mlp adapter of width 1024) and a seeded bf16 or
+int8 cache of 256 positions at pos 180, as a b=1 caption's decode step
+does.  Each prints a sha256 digest of its outputs (y, k_new, v_new), so
+the checkouts' results can be compared bit for bit; the last line says
+which digests agree between the checkouts.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import hashlib
 import itertools
 import json
 import statistics
@@ -56,10 +65,81 @@ SHAPES = (
     ("K1 fwd", "flash_fwd", 2 * 2048, 16, 256, 1),
     ("K9a dK,dV", "flash_dkv", 2 * 2048, 16, 256, 1),
     ("K9b dQ", "flash_dq", 2 * 2048, 16, 256, 1),
+    # K8: the weight format, then the cache's, in place of K and N
+    ("K8 int4 bf16-cache", "k8", 1, "int4", "bf16", 28),
+    ("K8 int4 int8-cache", "k8", 1, "int4", "int8", 28),
+    ("K8 int8 bf16-cache", "k8", 1, "int8", "bf16", 28),
+    ("K8 int8 int8-cache", "k8", 1, "int8", "int8", 28),
 )
+K8_POS, K8_MAX_LEN = 180, 256
 # the substrings of the kernel names each kind is timed by
 MATCH = {"flash_fwd": ("flash_fwd",), "flash_dkv": ("flash_bwd_dkv",),
-         "flash_dq": ("flash_bwd_dq",)}
+         "flash_dq": ("flash_bwd_dq",), "k8": ("decode_",)}
+
+
+@functools.lru_cache(maxsize=1)
+def _k8_stacks(torch, quant, fmt, L):
+    """Seeded GPT-J 6B serving stacks of ``fmt`` built on the card, one layer
+    at a time (the dual, the in_proj, the v1 mlp adapter, the vectors)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = ((lambda a: quant.quantize_int4(a, compiled=True)) if fmt == "int4"
+         else (lambda a: quant.quantize_int8(a, compiled=True)))
+
+    def stack(k, n):
+        packs = [q(torch.randn((k, n), generator=g, device=dev) * 0.02) for _ in range(L)]
+        return {key: torch.stack([p[key] for p in packs]) for key in packs[0]}
+
+    o, f = stack(D, D), stack(F_, D)
+    if fmt == "int4":
+        dual = {"q4": torch.cat([o["q4"], f["q4"]], 1), "s4": torch.cat([o["s4"], f["s4"]], 1)}
+    else:
+        dual = {"q": torch.cat([o["q"], f["q"]], 1), "s": torch.stack([o["s"], f["s"]], 1)}
+    del o, f
+    w_in = stack(D, 3 * D + F_)
+
+    def vec(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    fz = quant.quantize_adapter_fused(vec(L, D, 1024, std=0.05), vec(L, 1024),
+                                      vec(L, 1024, D, std=0.05), vec(L, D),
+                                      out_scale=1 + vec(L, std=0.5))
+    vecs = (vec(L, F_, std=0.1), vec(L, D), 1 + vec(L, D, std=0.1), vec(L, D))
+    return dual, w_in, fz, vecs
+
+
+def _k8_inputs(torch, quant, g, dev, fmt, kv, L):
+    """The arguments of a K8 call (``decode_all_layers_fused(*args, **kw)``)
+    on the stacks of ``fmt`` and a seeded cache of ``kv``."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.ops.rotary import rotary_sincos
+
+    dual, w_in, fz, vecs = _k8_stacks(torch, quant, fmt, L)
+    bf = torch.bfloat16
+    shape = (L, 1, K8_MAX_LEN, 16, 256)
+    kc, vc = (torch.randn(shape, generator=g, device=dev).to(bf) for _ in range(2))
+    kvs = None
+    if kv == "int8":
+        (kc, ks), (vc, vs) = gptj._quantize_kv(kc), gptj._quantize_kv(vc)
+        kvs = (ks, vs)
+    fused = torch.randn((1, 3 * D + F_), generator=g, device=dev).to(bf)
+    x = (torch.randn((1, D), generator=g, device=dev) * 0.3).to(bf)
+    u = torch.randn((1, D), generator=g, device=dev).to(bf)
+    sincos = rotary_sincos(torch.tensor([K8_POS], device=dev), 64)
+    pos = torch.tensor([K8_POS], dtype=torch.int32, device=dev)
+    args = (fused, x, u, sincos, kc, vc, kvs, pos, dual, w_in, *vecs)
+    kw = dict(n_heads=16, scale=256 ** -0.5, fz_mlp=fz, mlp_src="out")
+    return args, kw
+
+
+def _digest(outs) -> str:
+    """sha256 of the outputs' bytes (the first 16 hex digits)."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _inputs(torch, quant, g, dev, kind, m, k, n, layers):
@@ -67,6 +147,11 @@ def _inputs(torch, quant, g, dev, kind, m, k, n, layers):
     kind's kernel wrapper on layer i: (weights, scales, call); for K1 and
     K9 the seeded q, k, v, dO of one layer's attention: (q, lse, call)."""
     bf16 = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    if kind == "k8":
+        from magma_tpu_torch.ops import decode_layer as dl
+
+        args, kw = _k8_inputs(torch, quant, g, dev, k, n, layers)
+        return None, None, lambda i: dl.decode_all_layers_fused(*args, **kw)
     if kind.startswith("flash"):
         from magma_tpu_torch.ops import flash_attention as fa
 
@@ -127,6 +212,8 @@ def _child(tree: Path, calls: int, only: tuple) -> dict:
         wq, s, call = _inputs(torch, quant, g, dev, kind, m, k, n, layers)
         match = MATCH.get(kind, ("w4a8",) if kind.startswith("int4") else ("int8", "gemv", "mma"))
         it = itertools.cycle(range(layers))
+        if kind == "k8":
+            out[f"{label} digest"] = _digest(call(0))
         for _ in range(3):
             call(next(it))
         torch.cuda.synchronize()
@@ -142,8 +229,8 @@ def _child(tree: Path, calls: int, only: tuple) -> dict:
             if (e.device_type == torch.autograd.DeviceType.CUDA
                     and any(word in e.name for word in match)):
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
-        out[f"{label} M={m}"] = (sum(statistics.fmean(t) for t in by_name.values())
-                                 if by_name else None)
+        key = label if kind == "k8" else f"{label} M={m}"
+        out[key] = sum(statistics.fmean(t) for t in by_name.values()) if by_name else None
         if kind.startswith("int4") and m > 8:  # the activation pre-pass's share
             out[f"{label} M={m} pre-pass"] = sum(
                 statistics.fmean(t) for name, t in by_name.items() if "quantize" in name)
@@ -180,11 +267,20 @@ def main() -> int:
             return proc.returncode
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]))
+    digests = {}
     for tree in trees:
         mine = [r for r in runs if r["tree"] == str(tree)]
         med = {k: statistics.median(r[k] for r in mine) for k in mine[0]
-               if k != "tree" and all(r[k] is not None for r in mine)}
+               if k != "tree" and not k.endswith("digest")
+               and all(r[k] is not None for r in mine)}
         print(json.dumps({"tree": str(tree), "median_ms": med}))
+        for k in mine[0]:
+            if k.endswith("digest"):
+                digests.setdefault(k, {}).setdefault(str(tree), set()).update(r[k] for r in mine)
+    if digests:
+        print(json.dumps({k: {"trees": {t: sorted(v) for t, v in per.items()},
+                              "all_equal": len(set().union(*per.values())) == 1}
+                          for k, per in digests.items()}))
     return 0
 
 

@@ -553,7 +553,10 @@ K8_REL_TOL, K8_MIN_EQUAL = 2.0 ** -5, 0.5
 
 def _declayer_payloads(dev, fmt, kv, recipe, L=3, D=2048, F=2048, max_len=64, seed=20):
     """Stacks at a small head_dim-256 geometry (8 heads, D = F = 2048, NI =
-    8192), a filled cache and the layer inputs, all from seeds on the card."""
+    8192), a filled cache and the layer inputs, all from seeds on the card.
+    Recipes: "v1" the mlp adapter; "scaled" both adapters (the attention's
+    fed from u_in) and o_bias; "attn_no_bias" both adapters, no o_bias;
+    "bias_no_adapter" o_bias and no adapter."""
     from magma_tpu_torch.models import gptj
     from magma_tpu_torch.ops import quant
 
@@ -582,9 +585,13 @@ def _declayer_payloads(dev, fmt, kv, recipe, L=3, D=2048, F=2048, max_len=64, se
                                             randn(L, 512, D, std=0.05), randn(L, D, std=0.02),
                                             out_scale=1 + randn(L, std=0.5))
 
-    kw = dict(n_heads=D // 256, scale=1 / 16, fz_mlp=adapter(), mlp_src="out")
-    if recipe == "scaled":
-        kw.update(fz_attn=adapter(), attn_src="in", o_bias=randn(L, D, std=0.02))
+    kw = dict(n_heads=D // 256, scale=1 / 16)
+    if recipe != "bias_no_adapter":
+        kw.update(fz_mlp=adapter(), mlp_src="out")
+    if recipe in ("scaled", "attn_no_bias"):
+        kw.update(fz_attn=adapter(), attn_src="in")
+    if recipe in ("scaled", "bias_no_adapter"):
+        kw.update(o_bias=randn(L, D, std=0.02))
     shape = (L, 1, max_len, D // 256, 256)
     kc, vc = randn(*shape).to(torch.bfloat16), randn(*shape).to(torch.bfloat16)
     kvs = None
@@ -638,18 +645,24 @@ def test_decode_layer_kernel_matches_plain(fmt, kv, recipe, layer, dev):
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no float atomics
 
 
+def _k8_args(dev, fmt, kv, recipe, pos, max_len=256):
+    from magma_tpu_torch.ops.rotary import rotary_sincos
+
+    dual, w_in, (bfi, bfo, ln_g, ln_b), (kc, vc, kvs), _, ins, kw = \
+        _declayer_payloads(dev, fmt, kv, recipe, max_len=max_len)
+    sincos = rotary_sincos(torch.tensor([pos], device=dev), 64)
+    args = (ins["fused"], ins["x"], ins["u"], sincos, kc, vc, kvs,
+            torch.tensor([pos], dtype=torch.int32, device=dev), dual, w_in, bfi, bfo, ln_g, ln_b)
+    return args, kw
+
+
 @pytest.mark.parametrize("pos", [37, 0])
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 @pytest.mark.parametrize("fmt", ["int4", "int8"])
 def test_decode_all_layers_kernel_matches_plain(fmt, kv, pos, dev):
     from magma_tpu_torch.ops import decode_layer as dl
-    from magma_tpu_torch.ops.rotary import rotary_sincos
 
-    dual, w_in, (bfi, bfo, ln_g, ln_b), (kc, vc, kvs), _, ins, kw = \
-        _declayer_payloads(dev, fmt, kv, "scaled")
-    sincos = rotary_sincos(torch.tensor([pos], device=dev), 64)
-    args = (ins["fused"], ins["x"], ins["u"], sincos, kc, vc, kvs,
-            torch.tensor([pos], dtype=torch.int32, device=dev), dual, w_in, bfi, bfo, ln_g, ln_b)
+    args, kw = _k8_args(dev, fmt, kv, "scaled", pos, max_len=64)
     before = dl.decode_all_layers_kernel.launches
     got = dl.decode_all_layers_fused(*args, **kw)
     torch.cuda.synchronize()
@@ -659,6 +672,115 @@ def test_decode_all_layers_kernel_matches_plain(fmt, kv, pos, dev):
     _check_k7_like(got[:1], ref[:1], ("y",), K8_REL_TOL, K8_MIN_EQUAL)
     # layer 0's rows come before any chained difference
     _check_k7_like((got[1][0], got[2][0]), (ref[1][0], ref[2][0]), ("k_new", "v_new"), 0, 1)
+
+
+# K8 against its plain version at positions that cross the attention's
+# 16-position chunks (none, a partial first chunk, one short of, at and one
+# past a chunk's end, the slice's 180 and max_len - 1 of a 256-position
+# cache) and over the adapter recipes.  The share of bit-equal elements is
+# no property of a kernel once a bf16 flip in one layer has moved every
+# later one: the earlier phase-per-barrier kernel, whose int4 bits this one
+# repeats, kept under half of y equal at int4 / int8 cache / pos 180, and
+# on chained inputs a layer's fused falls under 90% equal too.  So these
+# cases hold the bounds: K8
+# bit-equal to its layers run as K7 launches, each layer within K7's 2^-6
+# of the plain layer on the same inputs (k_new within a bf16 ulp, v_new
+# exact), the chain's y within K8's 2^-5 of the chained plain version, and
+# layer 0's rows exact.
+K8_POSITIONS = [0, 1, 15, 16, 17, 180, 255]
+
+
+def _check_k8_layerwise(dev, fmt, kv, recipe, pos):
+    from magma_tpu_torch.ops import decode_layer as dl
+
+    args, kw = _k8_args(dev, fmt, kv, recipe, pos)
+    before = dl.decode_all_layers_kernel.launches
+    got = dl.decode_all_layers_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert dl.decode_all_layers_kernel.launches == before + 1
+    fused0, x0, u0, sincos, kc, vc, kvs, pos_t, dual, w_in, *vecs = args
+    f, xx, uu, rows = fused0, x0, u0, []
+    for layer in range(3):
+        lkw = dict(kw, w_in=w_in if layer < 2 else None, u_in=uu)
+        largs = (f, xx, sincos, kc, vc, kvs, pos_t, dual, *vecs, layer)
+        outs = dl.decode_layer_fused(*largs, **lkw)
+        ref = dl.decode_layer_plain(*largs, **lkw)
+        names = ("y", "u", "fused", "k_new", "v_new") if layer < 2 else ("y", "u", "k_new", "v_new")
+        _check_k7_like(outs, ref, names, K7_REL_TOL, 0.0)
+        xx, uu = outs[:2]
+        if layer < 2:
+            f = outs[2]
+        rows.append(outs[-2:])
+    torch.cuda.synchronize()
+    assert torch.equal(xx, got[0])
+    assert torch.equal(torch.stack([r[0] for r in rows]), got[1])
+    assert torch.equal(torch.stack([r[1] for r in rows]), got[2])
+    ref = dl.decode_all_layers_plain(*args, **kw)
+    diff = (got[0].float() - ref[0].float()).abs()
+    assert diff.max() <= K8_REL_TOL * ref[0].float().abs().max()
+    _check_k7_like((got[1][0], got[2][0]), (ref[1][0], ref[2][0]), ("k_new", "v_new"), 0, 1)
+
+
+@pytest.mark.parametrize("pos", K8_POSITIONS)
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("fmt", ["int4", "int8"])
+def test_decode_all_layers_kernel_matches_plain_layerwise(fmt, kv, pos, dev):
+    _check_k8_layerwise(dev, fmt, kv, "scaled", pos)
+
+
+@pytest.mark.parametrize("recipe", ["v1", "attn_no_bias", "bias_no_adapter"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("fmt", ["int4", "int8"])
+def test_decode_all_layers_kernel_recipes_match_plain(fmt, kv, recipe, dev):
+    """With and without the attention adapter, with and without o_bias, and
+    with no adapter at all (the dual's tiles then write y themselves)."""
+    _check_k8_layerwise(dev, fmt, kv, recipe, 180)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("fmt", ["int4", "int8"])
+def test_decode_all_layers_kernel_repeats_bits(fmt, kv, dev):
+    """No float atomics and a fixed order of every sum: a second launch
+    gives the same bits, and so do the layers one K7 launch each."""
+    from magma_tpu_torch.ops import decode_layer as dl
+
+    args, kw = _k8_args(dev, fmt, kv, "scaled", 180)
+    got = dl.decode_all_layers_fused(*args, **kw)
+    again = dl.decode_all_layers_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    fused0, x0, u0, sincos, kc, vc, kvs, pos_t, dual, w_in, *vecs = args
+    f, xx, uu, rows = fused0, x0, u0, []
+    for layer in range(3):
+        outs = dl.decode_layer_fused(f, xx, sincos, kc, vc, kvs, pos_t, dual, *vecs, layer,
+                                     w_in=w_in if layer < 2 else None, u_in=uu, **kw)
+        xx, uu = outs[:2]
+        if layer < 2:
+            f = outs[2]
+        rows.append(outs[-2:])
+    torch.cuda.synchronize()
+    assert torch.equal(xx, got[0])
+    assert torch.equal(torch.stack([r[0] for r in rows]), got[1])
+    assert torch.equal(torch.stack([r[1] for r in rows]), got[2])
+
+
+@pytest.mark.parametrize("fmt", ["int4", "int8"])
+def test_decode_all_layers_stamped_matches_kernel(fmt, dev):
+    """The stamped measurement build computes K8's bits, stamps every phase
+    of every layer in every block, and counts no launch."""
+    from magma_tpu_torch.ops import decode_layer as dl
+
+    args, kw = _k8_args(dev, fmt, "bf16", "v1", 180)
+    got = dl.decode_all_layers_fused(*args, **kw)
+    before = dl.decode_all_layers_kernel.launches
+    *stamped, stamps = dl.decode_all_layers_stamped(*args, **kw)
+    torch.cuda.synchronize()
+    assert dl.decode_all_layers_kernel.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, stamped))
+    assert stamps.shape == (dl.decode_layers_grid(), 3, len(dl.PHASES), 2)
+    assert bool((stamps > 0).all()) and bool((stamps[..., 1] >= stamps[..., 0]).all())
+    phases = dl.phase_breakdown(stamps)
+    assert phases["total"] > 0 and all(v >= 0 for v in phases.values())
 
 
 @pytest.mark.parametrize("bad", ["batch_2", "head_dim_128", "max_len_200", "cpu_cache",
@@ -691,6 +813,36 @@ def test_decode_layer_wrappers_raise_on_what_they_do_not_take(bad, dev):
     with pytest.raises((TypeError, ValueError)):
         fn(fused, x, sincos, kc, vc, kvs, pos, dual, bfi, bfo, ln_g, ln_b, layer, w_in=w_in,
            **kw)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("bad", ["int8_cache_bf16_scales", "unaligned_stack", "strided_stack",
+                                 "in_proj_of_other_width", "scratch_refused"])
+def test_decode_all_layers_kernel_raises_on_what_it_does_not_take(bad, dev, monkeypatch):
+    """K8's wrapper raises, and launches nothing, on a cache or a stack the
+    kernel does not take; a launch the C entry refuses raises too."""
+    from magma_tpu_torch.ops import decode_layer as dl
+
+    args, kw = _k8_args(dev, "int4", "int8", "v1", 37)
+    args = list(args)
+    kc, kvs, dual, w_in = args[4], args[6], args[8], args[9]
+    if bad == "int8_cache_bf16_scales":
+        args[6] = (kvs[0].float(), kvs[1].float())
+    elif bad == "unaligned_stack":
+        raw = torch.empty(dual["q4"].numel() + 8, dtype=torch.int8, device=dev)
+        args[8] = dict(dual, q4=raw[8:].view(dual["q4"].shape).copy_(dual["q4"]))
+    elif bad == "strided_stack":
+        args[4] = kc.transpose(3, 4).contiguous().transpose(3, 4)
+    elif bad == "in_proj_of_other_width":
+        args[9] = {k: v[..., :-128].contiguous() for k, v in w_in.items()}
+    else:  # the C entry's own checks: too few arrival counters
+        plan = dl.stream_plan
+        monkeypatch.setattr(dl, "stream_plan", lambda **k: dict(plan(**k), counters=0))
+    fn = dl.decode_all_layers_kernel
+    before = fn.launches
+    with pytest.raises(RuntimeError if bad == "scratch_refused" else (TypeError, ValueError)):
+        fn(*args, **kw)
+    torch.cuda.synchronize()
     assert fn.launches == before
 
 
