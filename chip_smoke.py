@@ -11,7 +11,12 @@ Phases (any failed check or exception ends the run with a non-zero exit):
 1. Build: the CUDA kernels from ``magma_tpu_torch/csrc`` (one nvcc per
    source, all started together, sm_90a), with ptxas's resource report.
 2. K1 (flash attention) against its plain PyTorch version on the same bf16
-   inputs at the caption prefill's shapes; kernel, plain version and one
+   inputs at the caption prefill's shapes, which its mma.sync body takes,
+   and at the training layers' (b 2 or 1, s 2048, 16 heads of 256; kv_len
+   [2048, 1000], a fully masked row, q_offset 128 with s_q 1920, and path
+   B's v as a view of the fused in_proj output), which its wgmma body
+   takes: each case on the body the rule names and the same bits on a
+   repeat; at the prefill's shape kernel, plain version and one
    ``scaled_dot_product_attention`` call with the same boolean mask timed
    (median of CUDA events).
 2b. The int8 kernels against their plain versions on seeded bf16/int8
@@ -81,8 +86,9 @@ Phases (any failed check or exception ends the run with a non-zero exit):
 2e. The training kernels against their plain versions: K9a/K9b (the flash
    backward) at (b 2, s 2048, h 16, hd 256, causal) and at a padded
    kv_len case of hd 128, each gradient within 2e-2 of its largest
-   magnitude and the same bits on a repeat; K1 timed at that training
-   shape beside SDPA's causal forward; K10 (the int8 input gradient) at
+   magnitude and the same bits on a repeat; K1 (its wgmma body) timed at
+   path A's and path B's training shapes beside SDPA's causal forward;
+   K10 (the int8 input gradient) at
    M = 2048 on the in_proj, o, fc_out and head shapes and at the head's
    M = 256 loss chunk, within the fp32 summation bound and the same bits
    on a repeat.  Each timed
@@ -93,7 +99,8 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    it stands (trainable RN50x16, dropout 0.1, flash, remat, seq 2048) with
    warmup_num_steps 1 and a global batch of ga 2 x micro 2, its
    ``Trainer`` taking 3 steps on seeded batches: exact launches a step
-   (K1 2L, K9a L, K9b L a micro-step), finite losses, the frozen LM
+   (K1 2L, all on its wgmma body, K9a L, K9b L a micro-step), finite
+   losses, the frozen LM
    bit-unchanged (checksums), every trainable group moved, step ms,
    tokens/s and peak memory; one micro-batch's loss and gradients through
    the kernels against the plain path (einsum attention and autograd) per
@@ -106,8 +113,11 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    K10 for their plain versions), then the overfit gate: 10 steps on one
    fixed batch, the 10th loss below the 1st by OVERFIT_MARGIN.
 
-The last two lines are one JSON object of the kernels' numbers and one
-JSON object saying the run is ok and on which device.
+No serving prefill of phases 3-7 (each at b = 1) may run K1's wgmma
+body: on it phase 6b's int8-cache agreement fails.  The last two
+lines are one JSON object of the kernels' numbers (K1's entry also with
+its wgmma body's numbers at both training shapes, train_a_* and
+train_b_*) and one JSON object saying the run is ok and on which device.
 """
 
 import dataclasses
@@ -328,41 +338,72 @@ def phase_build():
     cuda_build.load_library()
 
 
+def _k1_case(torch, rng, dev, hd, b, s_q, s_k, kv_len, strided_v):
+    """Seeded bf16 q, k, v of 16 heads; v, if ``strided_v``, a view of a
+    fused [q | k | v | fc_in] buffer as path B's in_proj output hands it."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, 16, hd), dtype=np.float32))
+               .to(dev, torch.bfloat16) for s in (s_q, s_k, s_k))
+    if strided_v:
+        d = 16 * hd
+        fused = torch.zeros((b, s_k, 7 * d), dtype=torch.bfloat16, device=dev)
+        fused[..., 2 * d:3 * d] = v.reshape(b, s_k, d)
+        v = fused[..., 2 * d:3 * d].reshape(b, s_k, 16, hd)
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    return q, k, v, kvl
+
+
 def phase_kernel(torch):
-    """K1 vs its plain version.  Returns its JSON entry (launches unset)."""
+    """K1 vs its plain version, at the prefill's shapes (the mma.sync body)
+    and at the training layers' (the wgmma body).  Returns its JSON entry
+    (launches unset)."""
     import torch.nn.functional as F
 
     from magma_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_kernel,
                                                      flash_attention_plain)
 
     dev = torch.device("cuda")
     hd = 256
+    # (name, b, s_q, s_k, kv_len, q_offset, strided v, wgmma body)
     cases = [
-        ("slice prefill b=1 kv_len=[149]", 1, 256, 256, [149], 0),
-        ("b=2 kv_len=[149, 0] (row 1 fully masked)", 2, 256, 256, [149, 0], 0),
-        ("q_offset=128 s_q=128 s_k=256", 1, 128, 256, None, 128),
+        ("slice prefill b=1 kv_len=[149]", 1, 256, 256, [149], 0, False, False),
+        ("b=2 kv_len=[149, 0] (row 1 fully masked)", 2, 256, 256, [149, 0], 0, False, False),
+        ("q_offset=128 s_q=128 s_k=256", 1, 128, 256, None, 128, False, False),
+        ("path A b=2 s=2048 causal", 2, 2048, 2048, None, 0, False, True),
+        ("path A kv_len=[2048, 1000]", 2, 2048, 2048, [2048, 1000], 0, False, True),
+        ("path A kv_len=[2048, 0] (row 1 fully masked)", 2, 2048, 2048, [2048, 0], 0, False,
+         True),
+        ("b=2 q_offset=128 s_q=1920 s_k=2048", 2, 1920, 2048, None, 128, False, True),
+        ("path B b=1 s=2048, v a view of the fused in_proj output", 1, 2048, 2048, None, 0,
+         True, True),
     ]
     rng = np.random.default_rng(0)
     worst = 0.0
     timed = None
-    for name, b, s_q, s_k, kv_len, q_offset in cases:
-        q, k, v = (torch.from_numpy(rng.standard_normal((b, s, 16, hd), dtype=np.float32))
-                   .to(dev, torch.bfloat16) for s in (s_q, s_k, s_k))
-        kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    for name, b, s_q, s_k, kv_len, q_offset, strided_v, wgmma in cases:
+        q, k, v, kvl = _k1_case(torch, rng, dev, hd, b, s_q, s_k, kv_len, strided_v)
         kw = dict(scale=hd ** -0.5, causal=True, kv_len=kvl, q_offset=q_offset)
+        before = flash_attention_kernel.wgmma_launches
         o, lse = flash_attention_fwd(q, k, v, **kw)
+        took = flash_attention_kernel.wgmma_launches - before
         ref_o, ref_lse = flash_attention_plain(q, k, v, **kw)
+        again = flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
+        same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        del again
         err = (o.float() - ref_o.float()).abs()
         o_err = err.max().item()
         o_ok = bool((err <= O_ATOL + O_RTOL * ref_o.float().abs()).all())
         valid = (torch.ones((b,), dtype=torch.bool, device=dev) if kvl is None else kvl > 0)
         lse_err = (lse - ref_lse)[valid].abs().max().item()
-        print(f"[K1] {name}: max|O-plain| {o_err:.3e} (tol {O_ATOL} + 2^-7 |O|), "
-              f"max|lse-plain| {lse_err:.3e} (tol {LSE_TOL})")
+        print(f"[K1] {name}: {'wgmma' if took else 'mma.sync'} body, max|O-plain| "
+              f"{o_err:.3e} (tol {O_ATOL} + 2^-7 |O|), max|lse-plain| {lse_err:.3e} "
+              f"(tol {LSE_TOL}), the same bits on a repeat: {same}")
+        check(took == int(wgmma), f"K1 {name}: ran the {'wgmma' if took else 'mma.sync'} body")
         check(torch.isfinite(o.float()).all().item(), f"K1 {name}: non-finite O")
         check(o_ok, f"K1 {name}: O error {o_err} beyond {O_ATOL} + {O_RTOL} |O|")
         check(lse_err <= LSE_TOL, f"K1 {name}: lse error {lse_err} > {LSE_TOL}")
+        check(same, f"K1 {name}: a repeat gave other bits")
         if kvl is not None and not valid.all():
             masked_o = o[~valid].float().abs().max().item()
             print(f"[K1]   fully masked row: max|O| {masked_o}, lse equal to plain: "
@@ -372,6 +413,7 @@ def phase_kernel(torch):
         worst = max(worst, o_err)
         if timed is None:
             timed = (q, k, v, kw, kv_len[0])
+        del q, k, v, o, lse, ref_o, ref_lse
     q, k, v, kw, kv = timed
     b, s, h, _ = q.shape
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw))
@@ -399,6 +441,7 @@ def phase_kernel(torch):
           f"(profiler)")
     return {"name": "flash_attn_fwd", "route": "cuda",
             "source": "magma_tpu_torch/csrc/flash_attn_fwd.cu",
+            "wgmma_source": "magma_tpu_torch/csrc/flash_attn_fwd_wgmma.cu",
             "replaces": "magma_tpu/ops/flash_attention.py:75",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms}
@@ -1810,7 +1853,7 @@ def phase_train_kernels(torch):
             library_is="backward of scaled_dot_product_attention(is_causal=True), all of dq, "
                        "dk, dv"))
         del lib_o, qt, kt, vt
-        _time_k1_training_shape(torch, F, q, k, v, hd)
+        entries["k1_training"] = _time_k1_training_shape(torch, F, q, k, v, hd)
     del q, k, v, do, o, lse
 
     # K10: path B's M = b s = 2048 on every int8 product of a layer and the head
@@ -1852,25 +1895,41 @@ def phase_train_kernels(torch):
 
 def _time_k1_training_shape(torch, F, q, k, v, hd):
     """K1 at a training layer's shape (phases 8 and 9 run it twice a layer,
-    forward and remat recompute): kernel alone, a call, plain, its bound and
-    SDPA's causal forward (the library call) on the same inputs."""
-    from magma_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
+    forward and remat recompute), path A's batch of 2 and path B's of 1, both
+    on the wgmma body: kernel alone, a call, plain, its bound and SDPA's
+    causal forward (the library call) on the same inputs.  Returns the
+    numbers for K1's JSON entry, keyed train_a_* and train_b_*."""
+    from magma_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_kernel,
+                                                     flash_attention_plain)
 
-    b, s, h, _ = q.shape
-    kw = dict(scale=hd ** -0.5, causal=True)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_err = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"])
-               .transpose(1, 2).float() - flash_attention_fwd(q, k, v, **kw)[0].float())
-    # s (s + 1) / 2 attended pairs a head, a QK^T and a PV product of 2 hd
-    # flops each; bytes: q, k, v read, O written, the fp32 lse
-    pairs = b * h * s * (s + 1) // 2
-    _timing(torch, "K1 training shape", b * s, lambda: flash_attention_fwd(q, k, v, **kw),
-            lambda: flash_attention_plain(q, k, v, **kw),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"]),
-            nbytes(q, k, v, q) + b * h * s * 4, 2 * 2 * hd * pairs, "flash_fwd_kernel",
-            library_is="scaled_dot_product_attention(is_causal=True)", plain_iters=5)
-    print(f"[K1 training shape] b={b} s={s} h={h} hd={hd} causal: max|SDPA - kernel| "
-          f"{lib_err.abs().max().item():.3e}")
+    out = {}
+    for tag, (qq, kk, vv) in (("a", (q, k, v)), ("b", (q[:1], k[:1], v[:1]))):
+        b, s, h, _ = qq.shape
+        kw = dict(scale=hd ** -0.5, causal=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qq, kk, vv))
+        before = flash_attention_kernel.wgmma_launches
+        lib_err = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"])
+                   .transpose(1, 2).float() - flash_attention_fwd(qq, kk, vv, **kw)[0].float())
+        check(flash_attention_kernel.wgmma_launches == before + 1,
+              f"K1 at path {tag.upper()}'s training shape did not run the wgmma body")
+        # s (s + 1) / 2 attended pairs a head, a QK^T and a PV product of 2 hd
+        # flops each; bytes: q, k, v read, O written, the fp32 lse
+        pairs = b * h * s * (s + 1) // 2
+        tm = _timing(torch, f"K1 training shape, path {tag.upper()}", b * s,
+                     lambda: flash_attention_fwd(qq, kk, vv, **kw),
+                     lambda: flash_attention_plain(qq, kk, vv, **kw),
+                     lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                            scale=kw["scale"]),
+                     nbytes(qq, kk, vv, qq) + b * h * s * 4, 2 * 2 * hd * pairs,
+                     "flash_fwd_wgmma", library_is="scaled_dot_product_attention(is_causal=True)",
+                     plain_iters=5)
+        check(tm["kernel_alone_ms"] is not None and tm["kernel_alone_ms"] > 0,
+              f"K1 path {tag.upper()}: the profiler saw no flash_fwd_wgmma kernel")
+        print(f"[K1 training shape, path {tag.upper()}] b={b} s={s} h={h} hd={hd} causal: "
+              f"max|SDPA - kernel| {lib_err.abs().max().item():.3e}")
+        out.update({f"train_{tag}_{key}": val for key, val in tm.items()})
+    return out
 
 
 def _train_config(path):
@@ -2092,12 +2151,15 @@ def phase_training(torch, path):
     wrappers = _all_wrappers()
     want = _want_train_launches(path, L, n_chunks, ga)
     totals = dict.fromkeys(wrappers, 0)
+    totals["k1_wgmma"] = 0
+    k1 = wrappers["flash_attention_kernel"]
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     for step in range(TRAIN_STEPS):
         batch = _train_batch(torch, cfg, seq, 100 + step)
         for fn in wrappers.values():
             fn.launches = 0  # count this step only
+        k1.wgmma_launches = 0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         loss = trainer.train_step(*batch)
@@ -2105,13 +2167,18 @@ def phase_training(torch, path):
         end.synchronize()
         times.append(start.elapsed_time(end))
         got = {k: fn.launches for k, fn in wrappers.items()}
-        for k in totals:
+        for k in wrappers:
             totals[k] += got[k]
+        totals["k1_wgmma"] += k1.wgmma_launches
         losses.append(loss)
         print(f"[{tag}] step {step + 1}: loss {loss:.6f}, {times[-1]:.1f} ms, launches "
-              + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+              + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+              + f" (K1 on the wgmma body {k1.wgmma_launches})")
         check(np.isfinite(loss), f"{tag}: non-finite loss at step {step + 1}")
         check(got == want, f"{tag} step {step + 1}: launches {got}, expected {want}")
+        check(k1.wgmma_launches == got["flash_attention_kernel"],
+              f"{tag} step {step + 1}: {k1.wgmma_launches} of {got['flash_attention_kernel']} "
+              f"K1 launches on the wgmma body")
     step_ms = statistics.median(times[1:])
     print(f"[{tag}] step {step_ms:.1f} ms (CUDA events, median of steps 2-{TRAIN_STEPS}), "
           f"{cfg.batch_size * seq / step_ms * 1e3:.0f} tokens/s ({cfg.batch_size} x {seq} "
@@ -2161,6 +2228,10 @@ def main() -> int:
     int4_entries = phase_int4_kernels(torch)
     decode_entries = phase_decode_layer_kernels(torch)
     train_entries = phase_train_kernels(torch)
+    k1.update(train_entries.pop("k1_training"))
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+    flash_attention_kernel.wgmma_launches = 0  # the serving paths keep the mma.sync body
     model, emb, greedy_tokens, bf16_launches = phase_slice(torch)
     check(bf16_launches > 0, "the bf16 path launched no K1 kernel")
     phase_kernel_vs_plain_path(torch, model, emb, greedy_tokens)
@@ -2174,6 +2245,9 @@ def main() -> int:
     paths["int4"] = launches4
     paths["int4 agreement"] = phase_decode_agreement(torch, model, emb4, tokens4, "int4")
     paths["int4+kv8"] = phase_int4_kv8(torch, model, emb4, tokens4)
+    print(f"[serving] K1 launches of the wgmma body over phases 3-7: "
+          f"{flash_attention_kernel.wgmma_launches} (every b = 1 prefill keeps the mma.sync body)")
+    check(flash_attention_kernel.wgmma_launches == 0, "a serving prefill ran K1's wgmma body")
     del model, emb4, tokens4  # free the int4 model before training
     gc.collect()
     torch.cuda.empty_cache()
@@ -2185,13 +2259,17 @@ def main() -> int:
     for wrapper, n in launches.items():
         check(n > 0, f"no path launched {wrapper}")
     k1["launches"] = launches["flash_attention_kernel"]
+    k1["wgmma_launches"] = paths["train A"]["k1_wgmma"] + paths["train B"]["k1_wgmma"]
     entries = {**int8_entries, **int4_entries, **decode_entries, **train_entries}
     kernels = [k1] + [dict(entries[w], launches=launches[w])
                       for w in (*INT8_KERNELS, *INT4_KERNELS, *DECODE_KERNELS, *TRAIN_KERNELS)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"done in {time.perf_counter() - t_start:.1f} s on {smi}")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
+    # K1's entry also carries its wgmma body's numbers at both training shapes
+    k1_extra = [key for key in k1 if key.startswith("train_")] + ["wgmma_source", "wgmma_launches"]
+    print(json.dumps({"kernels": [{k: e[k] for k in keys + (tuple(k1_extra) if e is k1 else ())}
+                                  for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -73,15 +73,14 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tma_wgmma.cuh"
+#include "flash_wgmma.cuh"
 
 using namespace tma_wgmma;
+using namespace flash_wgmma;
 
 namespace {
 
 constexpr int BLK = 64;        // K9a: keys a block, query rows a step; K9b: rows a warpgroup
-constexpr int ROW_BYTES = 128;  // a swizzled row: 64 bf16 of hd
-constexpr int PANEL = BLK * ROW_BYTES;  // a 64-row box of 64 hd
 constexpr int STAGES = 2;       // K9a's ring
 constexpr int DKV_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMERS = 256;
@@ -126,81 +125,6 @@ struct Dq {
 
 // 227 KB: the most shared memory a block of an H100 can have
 static_assert(Dkv<256>::SMEM <= 232448 && Dq<256>::SMEM <= 232448, "shared memory");
-
-// rows [r0, r0 + box rows) of (batch bi, head hi): hd / 64 boxes, one a
-// 64-wide panel of `panel` bytes
-template <int HD>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
-                                          int r0, int hi, int bi, int panel) {
-#pragma unroll
-  for (int c = 0; c < HD / 64; ++c) tma_load_4d(dst + c * panel, map, bar, c * 64, hi, r0, bi);
-}
-
-// the K-major descriptor of the k16 step kk of a tile of `panel`-byte panels
-__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int kk, int panel) {
-  return sw128_desc(tile + (kk >> 2) * panel + (kk & 3) * 32);
-}
-
-// the register A of the next product, one k16 step a row of `a`, from a
-// 64 x (R / 2) fp32 accumulator: D's pairs are A's pairs, rounded to bf16
-template <int R>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[R / 8][4], const float (&x)[R]) {
-#pragma unroll
-  for (int kk = 0; kk < R / 8; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16x2(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
-  }
-}
-
-// a warpgroup's 64 x HD accumulator times `mul`, rounded to bf16, into
-// `tile` (free shared memory, 64-row panels in the 128-byte swizzle: the
-// bank of each 4-byte write is 4 ((j ^ g) & 7) + t, so a warp's writes never
-// collide), then rows [row0, row0 + 64) of (batch bi, head hi) through the
-// output's tensor map: one 8 KB box a panel instead of 4-byte stores
-// scattered over 8 rows a warp; rows past the tensor's end are not written
-template <int HD>
-__device__ __forceinline__ void store_tile(const CUtensorMap* map, uint8_t* tile,
-                                           const float (&acc)[HD / 2], float mul, int row0,
-                                           int hi, int bi, int ctid, int bar) {
-  const int lane = ctid & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = (ctid >> 5) * 16 + g + 8 * r;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(tile + (j >> 3) * PANEL + row * ROW_BYTES +
-                                   (((j ^ row) & 7) << 4) + 4 * t) =
-          pack_bf16x2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
-    }
-  }
-  fence_proxy_async();  // the generic writes, seen by the TMA store
-  bar_sync(bar, 128);
-  if (ctid == 0) {
-#pragma unroll
-    for (int c = 0; c < HD / 64; ++c) tma_store_4d(map, tile + c * PANEL, c * 64, hi, row0, bi);
-    bulk_store_wait_read();
-  }
-}
-
-// P = exp(S scale - lse) as 2^(S scale log2(e) - lse log2(e)): one fma and
-// the MUFU's ex2 (2^-22 relative), where expf takes a range reduction
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// keeps A's registers of an rs product in flight from being reused
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-  }
-}
 
 __device__ __forceinline__ int kv_len_of(const BwdParams& p, int bi) {
   return p.kv_len == nullptr ? p.s_k : min(p.s_k, p.kv_len[bi]);
@@ -372,8 +296,9 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
   fence_acc(acc);
   // dV (wg 0) into K's tile, dK (wg 1) into V's, once neither is read
   bar_sync(BAR_DONE, CONSUMERS);
-  store_tile<HD>(wg == 0 ? &p.o1 : &p.o0, smem + wg * L::TILE, acc, wg == 0 ? 1.f : p.scale, n0,
-                 hi, bi, ctid, BAR_STORE + wg);
+  const float mul = wg == 0 ? 1.f : p.scale;
+  store_tile<HD>(wg == 0 ? &p.o1 : &p.o0, smem + wg * L::TILE, acc, mul, mul, n0, hi, bi, ctid,
+                 BAR_STORE + wg);
 }
 
 // K9b: query rows [q0, q0 + 128) of (batch, head) blockIdx.x
@@ -501,18 +426,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   }
 
   // dQ into this warpgroup's Q tile, which only its own products read
-  store_tile<HD>(&p.o0, smem + wg * L::TILE, acc, p.scale, row0, hi, bi, ctid, BAR_STORE + wg);
-}
-
-// (b, s, h, hd) bf16 at `base`, element strides sb, ss, sh (hd unit), as a
-// 4-D (hd, h, s, b) map read in boxes of 64 hd x `rows` rows
-bool encode_bshd(CUtensorMap* map, const void* base, int b, int s, int h, int hd, long long sb,
-                 long long ss, long long sh, int rows) {
-  const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)h, (uint64_t)s, (uint64_t)b};
-  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2, (uint64_t)sb * 2};
-  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-  return encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
-                   CU_TENSOR_MAP_SWIZZLE_128B);
+  store_tile<HD>(&p.o0, smem + wg * L::TILE, acc, p.scale, p.scale, row0, hi, bi, ctid,
+                 BAR_STORE + wg);
 }
 
 // the parameters, with the maps of q, dO in boxes of 64 rows, of k, v in
@@ -563,78 +478,6 @@ cudaError_t launch_dq(const BwdParams& p, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// A check of the wgmma forms above on one warpgroup: D (64 x N, fp32) = A
-// (64 x K) B with A and B bf16 row-major in device memory, each copied into
-// shared memory in the 128-byte-swizzled panels a 64-column TMA box writes.
-//   form 0, 1: ss, B given as (N, K) rows (K-major), N = 64, 48;
-//   form 2, 3: rs, A from registers, B given as (K, N) rows (MN-major,
-//              trans-b), N = 256, 128.
-// ---------------------------------------------------------------------------
-
-// rows x cols row-major bf16 -> 64-column swizzled panels of rows x 128 bytes
-__device__ void to_sw128(uint8_t* dst, const __nv_bfloat16* src, int rows, int cols) {
-  for (int i = threadIdx.x; i < rows * cols / 8; i += blockDim.x) {
-    const int r = i / (cols / 8), c16 = i % (cols / 8);  // 16-byte chunk c16 of row r
-    *reinterpret_cast<uint4*>(dst + (c16 >> 3) * rows * ROW_BYTES + r * ROW_BYTES +
-                              (((c16 & 7) ^ (r & 7)) << 4)) =
-        *reinterpret_cast<const uint4*>(src + (long long)r * cols + c16 * 8);
-  }
-}
-
-template <int N, bool SS>
-__global__ void __launch_bounds__(128) wgmma_forms_kernel(const __nv_bfloat16* a,
-                                                          const __nv_bfloat16* b, float* d, int k) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sa = align_1024(smem_raw);
-  uint8_t* sb = sa + (SS ? BLK * k * 2 : 0);
-  if (SS) {
-    to_sw128(sa, a, BLK, k);
-    to_sw128(sb, b, N, k);
-  } else {
-    to_sw128(sb, b, k, N);
-  }
-  fence_proxy_async();
-  __syncthreads();
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16 + g;
-  float acc[N / 2];
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  for (int kk = 0; kk < k / 16; ++kk) {  // one k16 step at a time: A's registers change
-    wgmma_fence();
-    fence_acc(acc);
-    if constexpr (SS) {
-      Wgmma<N>::ss(acc, kmajor(sa, kk, BLK * ROW_BYTES), kmajor(sb, kk, N * ROW_BYTES), 1);
-    } else {
-      const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a);
-      const int c = 8 * kk + t, kw = k / 2;  // the bf16 pair at k 16 kk + 2t
-      const uint32_t af[4] = {a32[r0 * kw + c], a32[(r0 + 8) * kw + c], a32[r0 * kw + c + 4],
-                              a32[(r0 + 8) * kw + c + 4]};
-      Wgmma<N>::template rs<1>(acc, af, sw128_desc_mn(sb + kk * 2048, k * ROW_BYTES));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(acc);
-  }
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const int row = r0 + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + 2 * t + (i & 1);
-    d[row * N + col] = acc[i];
-  }
-}
-
-template <int N, bool SS>
-cudaError_t launch_forms(const void* a, const void* b, float* d, int k, cudaStream_t stream) {
-  const int smem = (SS ? (BLK + N) * k * 2 : k * N * 2) + 1024;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      wgmma_forms_kernel<N, SS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
-  wgmma_forms_kernel<N, SS><<<1, 128, smem, stream>>>(static_cast<const __nv_bfloat16*>(a),
-                                                      static_cast<const __nv_bfloat16*>(b), d, k);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // C entries for ctypes; each returns a cudaError_t (0 on success).
@@ -668,22 +511,4 @@ extern "C" int magma_flash_attn_bwd_dq(const void* q, const void* k, const void*
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(hd == 128 ? launch_dq<128>(p, b * h, st) : launch_dq<256>(p, b * h, st));
-}
-
-// the wgmma forms' check (see above): a (64, k), b (N, k) for forms 0, 1
-// (k 128 or 256), (k, N) for forms 2, 3 (k 32, 48 or 64); d (64, N) fp32
-extern "C" int magma_wgmma_forms_check(const void* a, const void* b, float* d, int form, int k,
-                                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool ss = form < 2;
-  if (ss ? (k != 128 && k != 256) : (k != 32 && k != 48 && k != 64)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  switch (form) {
-    case 0: return (int)launch_forms<64, true>(a, b, d, k, st);
-    case 1: return (int)launch_forms<48, true>(a, b, d, k, st);
-    case 2: return (int)launch_forms<256, false>(a, b, d, k, st);
-    case 3: return (int)launch_forms<128, false>(a, b, d, k, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }

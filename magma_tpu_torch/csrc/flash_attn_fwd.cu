@@ -28,7 +28,9 @@
 // tile is 32 rows, loaded with cp.async.  At hd = 256 the Q tile (33 KB)
 // plus one K and one V tile (17 KB each) need 66 KB of dynamic shared
 // memory, above the 48 KB default, so the launcher raises the limit.
-// wgmma, TMA and a pipelined kv loop are later work.
+// This is the body of small launches (the caption prefill); large ones (the
+// training layers' attention) take flash_attn_fwd_wgmma.cu, picked by
+// `flash_fwd_takes_wgmma` in ops/flash_attention.py from the shapes alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,7 +1,8 @@
 // Hopper pipeline pieces shared by the int8 weight-only tiles of
 // int8_matmul.cu (K2a, K2b, K4a at M > 8), int8_matmul_dx.cu (K10), the
-// W4A8 tile of int4_matmul.cu (K3, K4b at M > 8) and the flash backward of
-// flash_attn_bwd.cu (K9a, K9b): mbarriers, TMA tile loads (2-D and 4-D),
+// W4A8 tile of int4_matmul.cu (K3, K4b at M > 8), the flash backward of
+// flash_attn_bwd.cu (K9a, K9b) and the flash forward's large-launch body
+// (flash_attn_fwd_wgmma.cu, K1): mbarriers, TMA tile loads (2-D and 4-D),
 // 4-D TMA tile stores and bulk copies, the 128-byte-swizzled shared memory
 // descriptors (K-major and MN-major), register rebalancing, named and
 // cluster barriers and wgmma.mma_async: A from registers (`rs`; bf16 x
@@ -325,6 +326,20 @@ struct Wgmma<64> {
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  static __device__ __forceinline__ void ss(float (&d)[40], uint64_t adesc, uint64_t bdesc,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+        "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "l"(adesc), "l"(bdesc), "r"(accumulate));
   }
 };
 

@@ -2,9 +2,12 @@
 their wrappers and their plain versions.
 
 Port of ``magma_tpu/ops/flash_attention.py``: the Pallas ``_fwd_kernel``
-(``csrc/flash_attn_fwd.cu``) and the backward of its custom VJP,
-``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` (``csrc/flash_attn_bwd.cu``).
-The sources' headers say what bounds each kernel and how it is built.
+(two CUDA bodies of the same function: ``csrc/flash_attn_fwd.cu`` for small
+launches, ``csrc/flash_attn_fwd_wgmma.cu`` for large ones, chosen by
+``flash_fwd_takes_wgmma`` from the shapes alone) and the backward of its
+custom VJP, ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
+(``csrc/flash_attn_bwd.cu``).  The sources' headers say what bounds each
+kernel and how it is built.
 
 * ``flash_attention`` -- the differentiable public entry over (b, s, h, hd)
   tensors: a ``torch.autograd.Function`` whose forward is K1 and whose
@@ -35,7 +38,35 @@ import torch.nn.functional as F
 from magma_tpu_torch.ops.attention import NEG_INF
 
 SEQ_ALIGN = 128                  # the JAX wrapper's padding unit
-KERNEL_HEAD_DIMS = (128, 256)    # head dims the CUDA kernel is built for
+KERNEL_HEAD_DIMS = (128, 256)    # head dims the CUDA kernels are built for
+WGMMA_ROWS = 128                 # query rows a block of K1's wgmma body
+WGMMA_MIN_BLOCKS = 132           # an H100's SMs: see flash_fwd_takes_wgmma
+
+
+def flash_fwd_takes_wgmma(b: int, h: int, s_q: int, s_k: int, hd: int) -> bool:
+    """Which body of K1 a launch of these shapes runs: True for the wgmma
+    body (``csrc/flash_attn_fwd_wgmma.cu``), False for the mma.sync one
+    (``csrc/flash_attn_fwd.cu``).  Both compute the whole function (every
+    mask, head_dim 128 and 256), so the rule moves time, never the result
+    beyond the stated tolerance; it reads shapes only.
+
+    The wgmma body runs where its grid of 128-row blocks fills the card's
+    132 SMs: a training layer's attention (b 2 or 1, s 2048, h 16: 512 or
+    256 blocks).  ``scripts/torch_flash_crossover.py`` found no crossover
+    (NVIDIA H100 80GB HBM3, 700 W; causal, b h 16 and 32, s 256-2048, hd
+    256 and 128): the wgmma body is faster at every shape, 1.7-2.2x at
+    32-64 blocks and 2.8-4.3x at 256-512.  So the threshold is not a speed
+    crossover.  It keeps a b = 1 caption prefill of up to 1024 tokens (16
+    heads: at most 128 blocks) on the mma.sync body, because the serving
+    checks of ``chip_smoke.py`` do not all pass on the wgmma body's
+    prefill: on the same card the int4 model's decode over an int8 cache
+    (K8 against the b <= 8 path, held to 0.03) then reads 0.0311 in its v
+    entries, 0.0277 after the mma.sync body's prefill.  A batch reaches the
+    threshold sooner (b 5 or more at 256 tokens, 3 or more at 384) and
+    then takes the wgmma body, whose bits differ from the same request's
+    at b = 1."""
+    blocks = b * h * -(-s_q // WGMMA_ROWS)
+    return s_k > 0 and hd in KERNEL_HEAD_DIMS and blocks >= WGMMA_MIN_BLOCKS
 
 
 def _pad_inputs(q, k, v, kv_len):
@@ -156,9 +187,23 @@ def _kernel_fn():
     return fn
 
 
+@functools.cache
+def _wgmma_fn():
+    from magma_tpu_torch.cuda_build import load_library
+
+    fn = load_library().magma_flash_attn_fwd_wgmma
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # q, k, v, o, lse, kv_len, b, h, s_q, s_k, hd, strides, scale, causal,
+    # q_offset, stream
+    fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr, ctypes.c_float, i32, i32, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check_kernel_inputs(q, k, v, kv_len, q_offset, named):
     """The kernels' contract: bf16 CUDA tensors on q's device read as 16-byte
-    cp.async rows (K1) or through TMA tensor maps (K9a, K9b): a unit
+    cp.async rows (K1's mma.sync body) or through TMA tensor maps (K1's
+    wgmma body, K9a, K9b): a unit
     head_dim stride, other strides multiples of 8 elements, a 16-byte
     aligned base; head_dim 128 or 256, q_offset >= 0, an int32 kv_len on
     the same device.  Returns kv_len contiguous."""
@@ -189,37 +234,54 @@ def _check_kernel_inputs(q, k, v, kv_len, q_offset, named):
     return kv_len
 
 
-def flash_attention_kernel(q, k, v, kv_len, *, scale, causal, q_offset):
-    """Launch ``csrc/flash_attn_fwd.cu`` on CUDA tensors (b, s, h, hd) bf16.
-
-    Raises on anything the kernel does not take; never falls back.
-    Returns (O (b, s_q, h, hd) bf16, lse (b, h, s_q) fp32).  Each launch
-    adds one to ``flash_attention_kernel.launches``."""
-    kv_len = _check_kernel_inputs(q, k, v, kv_len, q_offset, (("q", q), ("k", k), ("v", v)))
+def _fwd_launch(wgmma, q, k, v, kv_len, *, scale, causal, q_offset):
+    """Launch one body of K1 (the wgmma body if ``wgmma``) on inputs that
+    ``_check_kernel_inputs`` passed, unless b h s_q is 0; counts nothing.
+    Returns (O (b, s_q, h, hd) bf16, lse (b, h, s_q) fp32)."""
     b, s_q, h, hd = q.shape
     s_k = k.shape[1]
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     if b * h * s_q == 0:
         return o, lse
-    err = _kernel_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        None if kv_len is None else kv_len.data_ptr(),
-        b, h, s_q, s_k, hd,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        o.stride(0), o.stride(1), o.stride(2),
-        float(scale), int(bool(causal)), int(q_offset),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr())
+    tail = (float(scale), int(bool(causal)), int(q_offset),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if wgmma:
+        strides = (ctypes.c_longlong * 9)(*(st for t in (q, k, v) for st in t.stride()[:3]))
+        err = _wgmma_fn()(*ptrs, b, h, s_q, s_k, hd, strides, *tail)
+        if err == -1:
+            raise RuntimeError("flash attention (wgmma body): a tensor map did not encode")
+    else:
+        err = _kernel_fn()(*ptrs, b, h, s_q, s_k, hd, *q.stride()[:3], *k.stride()[:3],
+                           *v.stride()[:3], *o.stride()[:3], *tail)
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
-    flash_attention_kernel.launches += 1
+        body = "wgmma" if wgmma else "mma.sync"
+        raise RuntimeError(f"flash attention kernel ({body} body) launch failed: cudaError {err}")
+    return o, lse
+
+
+def flash_attention_kernel(q, k, v, kv_len, *, scale, causal, q_offset):
+    """Launch K1 on CUDA tensors (b, s, h, hd) bf16: the body that
+    ``flash_fwd_takes_wgmma`` names for these shapes.
+
+    Raises on anything the kernel does not take; never falls back.
+    Returns (O (b, s_q, h, hd) bf16, lse (b, h, s_q) fp32).  Each launch
+    adds one to ``flash_attention_kernel.launches``, and a launch of the
+    wgmma body also to ``flash_attention_kernel.wgmma_launches``."""
+    kv_len = _check_kernel_inputs(q, k, v, kv_len, q_offset, (("q", q), ("k", k), ("v", v)))
+    b, s_q, h, hd = q.shape
+    wgmma = flash_fwd_takes_wgmma(b, h, s_q, k.shape[1], hd)
+    o, lse = _fwd_launch(wgmma, q, k, v, kv_len, scale=scale, causal=causal, q_offset=q_offset)
+    if b * h * s_q:
+        flash_attention_kernel.launches += 1
+        flash_attention_kernel.wgmma_launches += int(wgmma)
     return o, lse
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.wgmma_launches = 0
 
 
 @functools.cache

@@ -22,6 +22,10 @@ that both trees' kernels share ("w4a8", "flash_fwd", "flash_bwd_dkv",
 reverse order, ``--repeat`` times over (A B B A).  Prints one JSON line
 per run and the medians per checkout.
 
+The K1 rows time path A's layer attention (b 2), path B's (b 1) and the
+caption prefill's (b 1, s 256, kv_len 149), each through the wrapper, whichever
+body it picks; each prints a sha256 digest of O and lse.
+
 The K8 rows run ``decode_all_layers_fused`` over seeded GPT-J 6B stacks (28
 layers, int4 or int8, the v1 mlp adapter of width 1024) and a seeded bf16 or
 int8 cache of 256 positions at pos 180, as a b=1 caption's decode step
@@ -61,10 +65,13 @@ SHAPES = (
     ("K3 in_proj", "int4", 1, D, 3 * D + F_, 2),
     ("K4b o+fc_out", "int4_dual", 192, D + F_, D, 2),
     ("K4b o+fc_out", "int4_dual", 1, D + F_, D, 2),
-    # K1, K9: M = b s, then the heads and the head_dim in place of K and N
-    ("K1 fwd", "flash_fwd", 2 * 2048, 16, 256, 1),
-    ("K9a dK,dV", "flash_dkv", 2 * 2048, 16, 256, 1),
-    ("K9b dQ", "flash_dq", 2 * 2048, 16, 256, 1),
+    # K1, K9: (b, s, kv_len) in place of M, then the heads and the head_dim
+    # in place of K and N (path A's layer, path B's, the caption prefill's)
+    ("K1 fwd", "flash_fwd", (2, 2048, None), 16, 256, 1),
+    ("K1 fwd B", "flash_fwd", (1, 2048, None), 16, 256, 1),
+    ("K1 prefill", "flash_fwd", (1, 256, 149), 16, 256, 1),
+    ("K9a dK,dV", "flash_dkv", (2, 2048, None), 16, 256, 1),
+    ("K9b dQ", "flash_dq", (2, 2048, None), 16, 256, 1),
     # K8: the weight format, then the cache's, in place of K and N
     ("K8 int4 bf16-cache", "k8", 1, "int4", "bf16", 28),
     ("K8 int4 int8-cache", "k8", 1, "int4", "int8", 28),
@@ -155,14 +162,15 @@ def _inputs(torch, quant, g, dev, kind, m, k, n, layers):
     if kind.startswith("flash"):
         from magma_tpu_torch.ops import flash_attention as fa
 
-        b, s, h, hd = 2, m // 2, k, n
+        (b, s, kv), h, hd = m, k, n
         q, kk, v, do = (bf16(b, s, h, hd) for _ in range(4))
-        o, lse = fa.flash_attention_fwd(q, kk, v, scale=hd ** -0.5, causal=True)
+        kvl = None if kv is None else torch.full((b,), kv, dtype=torch.int32, device=dev)
+        o, lse = fa.flash_attention_fwd(q, kk, v, scale=hd ** -0.5, causal=True, kv_len=kvl)
         lse = lse.contiguous()
         di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         kw = dict(scale=hd ** -0.5, causal=True, q_offset=0)
         if kind == "flash_fwd":
-            return q, lse, lambda i: fa.flash_attention_kernel(q, kk, v, None, **kw)
+            return q, lse, lambda i: fa.flash_attention_kernel(q, kk, v, kvl, **kw)
         fn = (fa.flash_attention_bwd_dkv_kernel if kind == "flash_dkv"
               else fa.flash_attention_bwd_dq_kernel)
         return q, lse, lambda i: fn(q, kk, v, do, lse, di, None, **kw)
@@ -212,7 +220,7 @@ def _child(tree: Path, calls: int, only: tuple) -> dict:
         wq, s, call = _inputs(torch, quant, g, dev, kind, m, k, n, layers)
         match = MATCH.get(kind, ("w4a8",) if kind.startswith("int4") else ("int8", "gemv", "mma"))
         it = itertools.cycle(range(layers))
-        if kind == "k8":
+        if kind in ("k8", "flash_fwd"):  # K8's y, k_new, v_new; K1's O and lse
             out[f"{label} digest"] = _digest(call(0))
         for _ in range(3):
             call(next(it))
@@ -229,7 +237,8 @@ def _child(tree: Path, calls: int, only: tuple) -> dict:
             if (e.device_type == torch.autograd.DeviceType.CUDA
                     and any(word in e.name for word in match)):
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
-        key = label if kind == "k8" else f"{label} M={m}"
+        key = (label if kind == "k8" else f"{label} b={m[0]} s={m[1]}" if kind.startswith("flash")
+               else f"{label} M={m}")
         out[key] = sum(statistics.fmean(t) for t in by_name.values()) if by_name else None
         if kind.startswith("int4") and m > 8:  # the activation pre-pass's share
             out[f"{label} M={m} pre-pass"] = sum(

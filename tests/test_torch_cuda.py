@@ -43,9 +43,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _qkv(dev, b, s_q, s_k, hd, seed=0):
+def _qkv(dev, b, s_q, s_k, hd, seed=0, h=4):
     r = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(r.standard_normal((b, s, 4, hd), dtype=np.float32))
+    return tuple(torch.from_numpy(r.standard_normal((b, s, h, hd), dtype=np.float32))
                  .to(dev, torch.bfloat16) for s in (s_q, s_k, s_k))
 
 
@@ -117,6 +117,117 @@ def test_tiny_lm_prefill_kernel_vs_plain_path(dev):
     tokens, steps = generate_tokens(cfg, params, emb, None, max_steps=6, temperature=0.0)
     assert flash_attention_kernel.launches == before + cfg.n_layers
     assert tokens.shape == (1, 6) and steps >= 1
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_small_launches_take_the_mma_body(case, dev):
+    """CASES (4 heads, at most 2 blocks of 128 rows a head) stay on the
+    mma.sync body, as the caption prefill does."""
+    c = CASES[case]
+    q, k, v = _qkv(dev, c["b"], c["s_q"], c["s_k"], c["hd"])
+    kv_len = (None if c["kv_len"] is None
+              else torch.tensor(c["kv_len"], dtype=torch.int32, device=dev))
+    before = (flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches)
+    flash_attention_fwd(q, k, v, scale=c["hd"] ** -0.5, causal=True, kv_len=kv_len,
+                        q_offset=c["q_offset"])
+    assert (flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches) == (
+        before[0] + 1, before[1])
+
+
+# K1's wgmma body (csrc/flash_attn_fwd_wgmma.cu), at shapes that
+# flash_fwd_takes_wgmma sends to it (16 heads: at least 132 blocks of 128
+# rows), against the same plain version and tolerances; "direct" cases call
+# the wrapper on unpadded inputs (s not a multiple of 64)
+WGMMA_CASES = {
+    "causal_s2048_hd256": dict(b=1, s_q=2048, s_k=2048, hd=256),
+    "causal_s2048_hd128_kv_len": dict(b=1, s_q=2048, s_k=2048, hd=128, kv_len=[1000]),
+    "causal_s1024_hd256_kv_len": dict(b=2, s_q=1024, s_k=1024, hd=256, kv_len=[1024, 611]),
+    "causal_s1024_hd128": dict(b=2, s_q=1024, s_k=1024, hd=128),
+    "fully_masked_row_hd256": dict(b=2, s_q=1024, s_k=1024, hd=256, kv_len=[1024, 0]),
+    "fully_masked_row_hd128": dict(b=2, s_q=1024, s_k=1024, hd=128, kv_len=[0, 77]),
+    "q_offset_hd256": dict(b=2, s_q=960, s_k=1024, hd=256, q_offset=64),
+    "q_offset_hd128_kv_len": dict(b=2, s_q=896, s_k=1024, hd=128, kv_len=[1024, 900],
+                                  q_offset=128),
+    "not_causal_hd256_kv_len": dict(b=2, s_q=1024, s_k=1024, hd=256, kv_len=[1024, 300],
+                                    causal=False),
+    "not_causal_hd128": dict(b=1, s_q=2048, s_k=1536, hd=128, causal=False),
+    "direct_ragged_hd128": dict(b=2, s_q=1000, s_k=1000, hd=128, kv_len=[1000, 517],
+                                direct=True),
+    "direct_ragged_hd256_q_offset": dict(b=2, s_q=1000, s_k=1100, hd=256, q_offset=100,
+                                         direct=True),
+}
+
+
+def _wgmma_case(dev, c, seed=11):
+    q, k, v = _qkv(dev, c["b"], c["s_q"], c["s_k"], c["hd"], seed=seed, h=16)
+    kv_len = (None if c.get("kv_len") is None
+              else torch.tensor(c["kv_len"], dtype=torch.int32, device=dev))
+    kw = dict(scale=c["hd"] ** -0.5, causal=c.get("causal", True), kv_len=kv_len,
+              q_offset=c.get("q_offset", 0))
+    return q, k, v, kw
+
+
+def _fwd(q, k, v, kw, direct):
+    if direct:
+        return flash_attention_kernel(q, k, v, kw["kv_len"], scale=kw["scale"],
+                                      causal=kw["causal"], q_offset=kw["q_offset"])
+    return flash_attention_fwd(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_wgmma_body_matches_plain(case, dev):
+    c = WGMMA_CASES[case]
+    q, k, v, kw = _wgmma_case(dev, c)
+    before = (flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches)
+    o, lse = _fwd(q, k, v, kw, c.get("direct", False))
+    torch.cuda.synchronize()
+    assert (flash_attention_kernel.launches, flash_attention_kernel.wgmma_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_o, ref_lse = flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=O_ATOL, rtol=O_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+    if kw["kv_len"] is not None:
+        masked = kw["kv_len"] == 0
+        assert torch.all(o[masked] == 0)
+        assert torch.equal(lse[masked], ref_lse[masked])
+    o2, lse2 = _fwd(q, k, v, kw, c.get("direct", False))
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)  # the same bits on a repeat
+
+
+def test_wgmma_body_reads_path_b_strided_v(dev):
+    """Path B's v, a view of the fused in_proj output ([q | k | v | fc_in]
+    columns), loads in place: the bits of the same values made contiguous,
+    and within the tolerances of the plain version."""
+    b, s, h, hd = 1, 2048, 16, 256
+    d = h * hd
+    q, k, _ = _qkv(dev, b, s, s, hd, seed=12, h=h)
+    fused = torch.randn((b, s, 7 * d), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(13)).to(torch.bfloat16)
+    v = fused[..., 2 * d:3 * d].reshape(b, s, h, hd)
+    assert v.stride() == (s * 7 * d, 7 * d, hd, 1)
+    kw = dict(scale=hd ** -0.5, causal=True)
+    before = flash_attention_kernel.wgmma_launches
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    o_dense, lse_dense = flash_attention_fwd(q, k, v.contiguous(), **kw)
+    assert flash_attention_kernel.wgmma_launches == before + 2
+    assert torch.equal(o, o_dense) and torch.equal(lse, lse_dense)
+    ref_o, ref_lse = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=O_ATOL, rtol=O_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+
+
+def test_wgmma_body_raises_when_a_map_does_not_encode(dev):
+    """A base that is not 16-byte aligned (which the wrapper's checks refuse
+    first) makes the tensor map's encode fail: the launcher raises, and
+    runs no other body."""
+    from magma_tpu_torch.ops.flash_attention import _fwd_launch
+
+    q, k, v = _qkv(dev, 1, 2048, 2048, 256, h=16)
+    q_odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+    assert q_odd.data_ptr() % 16
+    with pytest.raises(RuntimeError, match="tensor map"):
+        _fwd_launch(True, q_odd, k, v, None, scale=1 / 16, causal=True, q_offset=0)
 
 
 # ---------------------------------------------------------------------------
@@ -955,6 +1066,32 @@ def test_flash_attention_grad_runs_k9(dev):
         assert (a.float() - r).abs().max().item() <= K9_REL_TOL * r.abs().max().item()
 
 
+def test_flash_attention_grad_runs_wgmma_body_and_k9(dev):
+    """torch.autograd through ``flash_attention`` at a shape of K1's wgmma
+    body: one K1 (on that body), one K9a, one K9b; the gradients within
+    K9_REL_TOL of the plain einsum path's."""
+    from magma_tpu_torch.ops.attention import xla_attention
+    from magma_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv_kernel,
+                                                     flash_attention_bwd_dq_kernel)
+
+    b, s, h, hd = 2, 1024, 16, 256
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, b, s, s, hd, seed=14, h=h))
+    kv_len = torch.tensor([1024, 700], dtype=torch.int32, device=dev)
+    g = torch.randn((b, s, h, hd), device=dev).to(torch.bfloat16)
+    fns = (flash_attention_kernel, flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel)
+    before = [f.launches for f in fns] + [flash_attention_kernel.wgmma_launches]
+    o = flash_attention(q, k, v, scale=hd ** -0.5, kv_len=kv_len)
+    got = torch.autograd.grad(o, (q, k, v), g)
+    after = [f.launches for f in fns] + [flash_attention_kernel.wgmma_launches]
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 1]
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    ref = torch.autograd.grad(xla_attention(qf, kf, vf, scale=hd ** -0.5, kv_len=kv_len).float(),
+                              (qf, kf, vf), g.float())
+    for a, r in zip(got, ref):
+        assert (a.float() - r).abs().max().item() <= K9_REL_TOL * r.abs().max().item()
+
+
 def _bwd_inputs(dev, b, s, h, hd, seed):
     r = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(r.standard_normal((b, s, h, hd), dtype=np.float32))
@@ -1009,20 +1146,23 @@ def test_flash_backward_kernels_read_path_b_strided_v(dev):
         assert (a.float() - r).abs().max().item() <= K9_REL_TOL * r.abs().max().item(), name
 
 
-# the wgmma forms of csrc/tma_wgmma.cuh that K9a/K9b build on, one
-# warpgroup each (magma_wgmma_forms_check in csrc/flash_attn_bwd.cu):
-# id -> (form, N, K).  Forms 0, 1: A and B from shared memory, both K-major
-# (D = A B^T, B given as (N, K)); 2, 3: A from registers, B MN-major through
-# trans-b (D = A B, B given as (K, N)).  Small integers make every sum exact,
-# so D equals torch.matmul's fp32 result bit for bit.
+# the wgmma forms of csrc/tma_wgmma.cuh that K9a/K9b and K1's wgmma body
+# build on, one warpgroup each (magma_wgmma_forms_check in
+# csrc/wgmma_forms.cu): id -> (B K-major, N, K, seed).  B K-major: ss, A
+# and B from shared memory (D = A B^T, B given as (N, K)); B MN-major: rs,
+# A from registers, B through trans-b (D = A B, B given as (K, N)).  Small
+# integers make every sum exact, so D equals torch.matmul's fp32 result bit
+# for bit.
 WGMMA_FORMS = {
-    "ss_n64_k256": (0, 64, 256),
-    "ss_n64_k128": (0, 64, 128),
-    "ss_n48_k256": (1, 48, 256),
-    "rs_trans_b_n256_k64": (2, 256, 64),
-    "rs_trans_b_n256_k48": (2, 256, 48),
-    "rs_trans_b_n256_k32": (2, 256, 32),
-    "rs_trans_b_n128_k64": (3, 128, 64),
+    "ss_n64_k256": (True, 64, 256, 320),
+    "ss_n64_k128": (True, 64, 128, 192),
+    "ss_n48_k256": (True, 48, 256, 1304),
+    "ss_n80_k256": (True, 80, 256, 4336),
+    "ss_n80_k128": (True, 80, 128, 4208),
+    "rs_trans_b_n256_k64": (False, 256, 64, 2320),
+    "rs_trans_b_n256_k48": (False, 256, 48, 2304),
+    "rs_trans_b_n256_k32": (False, 256, 32, 2288),
+    "rs_trans_b_n128_k64": (False, 128, 64, 3192),
 }
 
 
@@ -1032,19 +1172,19 @@ def test_wgmma_forms_match_matmul(name, dev):
 
     from magma_tpu_torch.cuda_build import load_library
 
-    form, n, k = WGMMA_FORMS[name]
-    r = np.random.default_rng(form * 1000 + n + k)
+    kmajor, n, k, seed = WGMMA_FORMS[name]
+    r = np.random.default_rng(seed)
     a = torch.from_numpy(r.integers(-4, 5, (64, k)).astype(np.float32)).to(dev, torch.bfloat16)
-    b_shape = (n, k) if form < 2 else (k, n)
+    b_shape = (n, k) if kmajor else (k, n)
     b = torch.from_numpy(r.integers(-4, 5, b_shape).astype(np.float32)).to(dev, torch.bfloat16)
     d = torch.full((64, n), float("nan"), dtype=torch.float32, device=dev)
     fn = load_library().magma_wgmma_forms_check
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), form, k,
+    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), n, k, int(kmajor),
              torch.cuda.current_stream(dev).cuda_stream)
     assert err == 0, f"cudaError {err}"
-    ref = torch.matmul(a.float(), b.float().T if form < 2 else b.float())
+    ref = torch.matmul(a.float(), b.float().T if kmajor else b.float())
     torch.cuda.synchronize()
     assert torch.equal(d, ref), (d - ref).abs().max().item()
 

@@ -109,3 +109,30 @@ def test_kernel_wrapper_never_takes_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_kernel(q, q, q, None, scale=1.0, causal=True, q_offset=0)
     assert flash_attention_kernel.launches == before
+
+
+# K1's two CUDA bodies by launch shape (b, h, s_q, s_k, hd): the training
+# layers' attention (paths A and B, 16 heads of 256 at seq 2048) takes the
+# wgmma body; the caption prefill at b = 1 (its prompt padded to 256) and
+# the CUDA tests' small CASES keep the mma.sync body; a batch of prompts
+# leaves it at 132 blocks of 128 rows (b 5 at 256 tokens)
+RULE_CASES = {
+    "path_a_train": ((2, 16, 2048, 2048, 256), True),
+    "path_b_train": ((1, 16, 2048, 2048, 256), True),
+    "slice_prefill": ((1, 16, 256, 256, 256), False),
+    "prefill_192": ((1, 16, 192, 192, 256), False),
+    "prefill_1024": ((1, 16, 1024, 1024, 256), False),
+    "batched_prefill_b4": ((4, 16, 256, 256, 256), False),
+    "batched_prefill_b5": ((5, 16, 256, 256, 256), True),
+    "cuda_test_cases": ((2, 4, 256, 256, 256), False),
+    "train_hd128": ((2, 16, 1024, 1024, 128), True),
+    "no_keys": ((2, 16, 2048, 0, 256), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RULE_CASES))
+def test_dispatch_rule_sends_each_shape_to_its_body(case):
+    from magma_tpu_torch.ops.flash_attention import flash_fwd_takes_wgmma
+
+    shape, wgmma = RULE_CASES[case]
+    assert flash_fwd_takes_wgmma(*shape) is wgmma
