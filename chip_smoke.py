@@ -22,7 +22,8 @@ Phases (any failed check or exception ends the run with a non-zero exit):
 2b. The int8 kernels against their plain versions on seeded bf16/int8
    inputs at the slice's shapes: K2b (in_proj) at M = 1, 5, 37, 192, 256,
    2048 and on the QLoRA layout's o and fc_out at M = 2048, K4a (o_proj +
-   fc_out) at M = 1, 192, K5 (the adapter) at M = 1, 64, K2a (the head) at
+   fc_out) at M = 1, 192, K5 (the adapter) at M = 1, 8, 16 (the serving
+   engine's pools), 64, K2a (the head) at
    M = 1 and at path B's 256-position loss chunk; each timed with its plain
    version and a bf16 ``torch.matmul`` over weights dequantised outside
    the timed call, and every M > 8 result the same bits on a repeat.
@@ -72,6 +73,33 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    as the values they stand for, code x scale); the plain version's
    distance printed beside K8's, and the distance of each layer's keys;
    the K7 chain equal to K8 bit for bit.
+5c. Split generate (int8): ``Magma.generate`` on 8 prompts of eight images
+   and the text (1,174 tokens padded to 1,216: b·s above 8192) takes
+   ``generate_tokens_split`` (a spy on it says so), prefilling in chunks of
+   512 through history attention, with exact launches; its first-step
+   logits are held against the whole-prompt prefill's at the same shape
+   (phase 4's bound: the chunks' attention is the einsum path, the whole
+   prompt's K1), the greedy tokens of both paths compared and both paths'
+   peak device memory printed.  Its two whole-prompt b = 8 prefills run
+   K1's wgmma body (>= 132 blocks), the only serving prefills that do.
+5d. The serving engine (int8, bf16 cache): ``MagmaServingEngine`` with
+   pools ((8, 2048), (16, 512)), windows of 8 and chunks of 512 serves 20
+   single-image captions and 3 eight-image prompts (3 chunks each), 32
+   new tokens each, greedy, top_k = 1 and sampled rows mixed (embedded once,
+   then submitted together): pipelined
+   (the main path) with exact launches from the prefills, chunks, installs
+   and windows it ran (K5 in both pools), every step's dispatch under
+   ``set_sync_debug_mode("error")`` up to the collect, every request ended
+   by EOS or its budget; output tokens/s, time to first token, ms a decode
+   step by pool, resident cache positions and peak memory printed; then
+   unpipelined, whose greedy and top_k = 1 tokens must equal the pipelined
+   ones, with one 16-row and one 8-row step replayed through the kernels
+   and through its kernels' plain versions (logits within 3e-2, argmax
+   equal, as phase 5b) and one window of each pool profiled (idle share);
+   the deterministic captions' first tokens equal ``Magma.generate``'s,
+   and a (1, 256) pool (K8) gives ``Magma.generate``'s tokens for a
+   request through ``submit_prompt`` and ``text_results``.  No 1-row
+   prefill runs K1's wgmma body.
 6. The int4 caption path: the int8 model is freed, a fresh ``Magma`` from
    the same seed takes ``quantize_for_serving(bits=4)`` and answers the
    same three requests, with exact launch counts (one K8 a decode step);
@@ -83,6 +111,8 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    ``kv_cache_dtype="int8"`` answers the same three requests with exact
    launches; its greedy prefill logits equal phase 6's bit for bit (the
    prefill reads fresh keys, never the cache).
+7b. The serving engine (int4, int8 cache), as 5d: K6 in the 8-slot pool,
+   K3, K4b and K5 in the 16-slot one.
 2e. The training kernels against their plain versions: K9a/K9b (the flash
    backward) at (b 2, s 2048, h 16, hd 256, causal) and at a padded
    kv_len case of hd 128, each gradient within 2e-2 of its largest
@@ -113,8 +143,9 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    K10 for their plain versions), then the overfit gate: 10 steps on one
    fixed batch, the 10th loss below the 1st by OVERFIT_MARGIN.
 
-No serving prefill of phases 3-7 (each at b = 1) may run K1's wgmma
-body: on it phase 6b's int8-cache agreement fails.  The last two
+No b = 1 serving prefill of phases 3-7 may run K1's wgmma body: on it
+phase 6b's int8-cache agreement fails; phase 5c's b = 8 whole-prompt
+prefills run it by the rule and are counted apart.  The last two
 lines are one JSON object of the kernels' numbers (K1's entry also with
 its wgmma body's numbers at both training shapes, train_a_* and
 train_b_*) and one JSON object saying the run is ok and on which device.
@@ -591,7 +622,7 @@ def phase_int8_kernels(torch):
     lib_u = [deq(fz["wu"][i], fz["su"][i, 0]) for i in range(L)]
     lib_b = [(fz["bd"][i, 0].to(torch.bfloat16), fz["bu"][i, 0].to(torch.bfloat16))
              for i in range(L)]
-    for m in (1, 64):
+    for m in (1, 8, 16, 64):  # decode; the engine's 8- and 16-slot pools; the top of K5
         x = bf16(m, D)
         out = quant.fused_adapter_stacked(x, fz, 5)
         ref = quant.fused_adapter_stacked_plain(x, fz, 5)
@@ -1216,10 +1247,10 @@ def _requests():
     ]
 
 
-def _image():
+def _image(seed=1):
     from PIL import Image
 
-    pixels = np.random.default_rng(1).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    pixels = np.random.default_rng(seed).integers(0, 256, (480, 640, 3), dtype=np.uint8)
     return Image.fromarray(pixels)
 
 
@@ -1772,6 +1803,490 @@ def phase_int4_kv8(torch, model, emb, tokens6):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Serving: split generate (5c) and the continuous-batching engine (5d, 7b)
+# ---------------------------------------------------------------------------
+
+# the engine's settings as docs/SERVING.md documents them
+ENGINE_KW = dict(cache_classes=((8, 2048), (16, 512)), decode_window=8, prefill_chunk=512)
+# per-request sampling of the trace, by request index mod 4: the first two
+# decode deterministically (greedy, top_k = 1), the others sample
+TRACE_SAMPLING = [{}, dict(temperature=0.8, top_k=1), dict(temperature=0.7, top_p=0.9),
+                  dict(temperature=0.7, top_k=5)]
+N_CAPTIONS, N_LONG, LONG_IMAGES = 20, 3, 8
+
+
+class _PlainServing:
+    """Within the block, the wrappers of a batched decode step's kernels run
+    their plain versions on the card: K2a, K2b, K4a, K5, K3, K4b and K6
+    swapped for the same functions in torch."""
+
+    def __enter__(self):
+        from magma_tpu_torch.ops import quant
+
+        self.quant = quant
+        self.saved = {n: getattr(quant, n) for n in (
+            "int8_matmul_kernel", "int8_matmul_stacked_kernel", "dual_matmul_kernel",
+            "fused_adapter_kernel", "int4_matmul_stacked_kernel", "int4_dual_kernel",
+            "boundary_kernel")}
+        quant.int8_matmul_kernel = lambda x2, wq, s: quant._dq_product(x2, wq, s)
+        quant.int8_matmul_stacked_kernel = quant.int8_matmul_stacked_plain
+        quant.dual_matmul_kernel = (
+            lambda c2, h2, wq, s, i: quant.dual_matmul_stacked_plain(c2, h2, {"q": wq, "s": s}, i))
+        quant.fused_adapter_kernel = quant.fused_adapter_stacked_plain
+        quant.int4_matmul_stacked_kernel = quant.int4_matmul_stacked_plain
+        quant.int4_dual_kernel = (lambda c2, h2, q4, s4, i: quant.dual_matmul_stacked_plain(
+            c2, h2, {"q4": q4, "s4": s4}, i))
+        quant.boundary_kernel = quant.boundary_fused_stacked_plain
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.quant, n, fn)
+
+
+class _EngineProbe:
+    """Within the block, the engine's dispatch functions are counted: full
+    prefills (with their padded lengths), chunks, installs and decode
+    windows (pool rows, steps, CUDA events around each, whether a chunk
+    rode it).  ``on_window(B, args, n_steps)`` runs before a window."""
+
+    def __init__(self, torch, on_window=None):
+        self.torch, self.on_window = torch, on_window
+        self.prefills, self.chunks, self.installs, self.windows = [], 0, 0, []
+
+    def __enter__(self):
+        from magma_tpu_torch.serving import engine as teng
+
+        torch, self.teng = self.torch, teng
+        self.saved = {n: getattr(teng, n) for n in ("_prefill_full", "_chunk_body",
+                                                    "_install_slot", "_decode",
+                                                    "_decode_with_chunk")}
+
+        def prefill(cfg, params, embeds, *a, **k):
+            self.prefills.append(embeds.shape[1])
+            return self.saved["_prefill_full"](cfg, params, embeds, *a, **k)
+
+        def chunk(*a, **k):
+            self.chunks += 1
+            return self.saved["_chunk_body"](*a, **k)
+
+        def install(*a, **k):
+            self.installs += 1
+            return self.saved["_install_slot"](*a, **k)
+
+        def window(name, piggy):
+            def fn(*a, n_steps, eos_token):
+                B = a[3].shape[0]
+                if self.on_window is not None:
+                    self.on_window(B, a[:8], n_steps)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = self.saved[name](*a, n_steps=n_steps, eos_token=eos_token)
+                end.record()
+                self.windows.append((B, n_steps, start, end, piggy))
+                return out
+            return fn
+
+        teng._prefill_full, teng._chunk_body, teng._install_slot = prefill, chunk, install
+        teng._decode = window("_decode", False)
+        teng._decode_with_chunk = window("_decode_with_chunk", True)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.teng, n, fn)
+
+    def want_launches(self, bits, L):
+        """Exact launches of what ran, by wrapper, on the v1 recipe."""
+        inproj = "int8_matmul_stacked_kernel" if bits == 8 else "int4_matmul_stacked_kernel"
+        dual = "dual_matmul_kernel" if bits == 8 else "int4_dual_kernel"
+        want = {}
+
+        def add(k, n):
+            want[k] = want.get(k, 0) + n
+
+        for s in self.prefills:  # a 1-row prefill: K1 a layer, K5 up to 64 rows
+            add(inproj, L)
+            add(dual, L)
+            add("flash_attention_kernel", L)
+            add("fused_adapter_kernel", L if s <= 64 else 0)
+        add(inproj, L * self.chunks)  # a chunk: history attention, 512 rows
+        add(dual, L * self.chunks)
+        add("int8_matmul_kernel", self.installs)  # the first token's head
+        for B, n, *_ in self.windows:
+            if B == 1:  # layer 0's in_proj, then all layers in one K8
+                add(inproj, n)
+                add("decode_all_layers_kernel", n)
+            elif bits == 4 and B <= 8:  # layer 0's in_proj, then K6 a layer
+                add(inproj, n)
+                add("boundary_kernel", L * n)
+            else:
+                add(inproj, L * n)
+                add(dual, L * n)
+                add("fused_adapter_kernel", L * n)
+            add("int8_matmul_kernel", n)
+        return {k: want.get(k, 0) for k in _all_wrappers()}
+
+    def ms_per_step(self):
+        """{(pool rows, a chunk rode): (median ms a decode step, windows)}
+        from the CUDA events around each window's dispatch."""
+        per = {}
+        for B, n, start, end, piggy in self.windows:
+            per.setdefault((B, piggy), []).append(start.elapsed_time(end) / n)
+        return {k: (statistics.median(v), len(v)) for k, v in sorted(per.items())}
+
+
+def phase_split_generate(torch, model):
+    """Phase 5c: ``Magma.generate`` on 8 eight-image prompts (b·s above
+    8192) takes the split path; its first-step logits against the
+    monolithic path's at the same shape, both paths' tokens and peak
+    memory.  Returns (the split path's launches by wrapper, K1's wgmma-body
+    launches of the monolithic b = 8 prefill)."""
+    from magma_tpu_torch.models import gptj, magma as magma_mod
+    from magma_tpu_torch.ops import sampling
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+    cfg, lm, dev = model.lm_config, model.params["lm"], model.device
+    L, b, C = cfg.n_layers, 8, 512
+    t_phase = time.perf_counter()
+    # row r: the eight images rotated by r, then the text
+    imgs = [model.preprocess_inputs([_image(200 + j)]) for j in range(LONG_IMAGES)]
+    text = model.preprocess_inputs([PROMPT])
+    emb = torch.cat([torch.cat(imgs[r:] + imgs[:r] + [text], dim=1) for r in range(b)])
+    s = emb.shape[1]
+    s_pad = -(-s // 64) * 64
+    check(b * s_pad > magma_mod.SPLIT_ABOVE, f"{b} x {s_pad} does not reach the split path")
+    wrappers = _all_wrappers()
+    calls, split = [], magma_mod.generate_tokens_split
+
+    def spy(*a, **kw):
+        calls.append((kw["window"], kw["prefill_chunk"]))
+        return split(*a, **kw)
+
+    def peak_run(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, resident, torch.cuda.max_memory_allocated()
+
+    for fn in wrappers.values():
+        fn.launches = 0  # count this path only
+    timing = {}
+    magma_mod.generate_tokens_split = spy
+    try:
+        tokens, resident, peak_split = peak_run(lambda: model.generate(
+            emb, max_steps=MAX_STEPS, temperature=0.0, decode=False, timing=timing))
+    finally:
+        magma_mod.generate_tokens_split = split
+    got = {k: fn.launches for k, fn in wrappers.items()}
+    steps, n_chunks = timing["steps"], -(-s_pad // C)
+    want = {k: 0 for k in wrappers}
+    want.update({"int8_matmul_stacked_kernel": L * (n_chunks + steps),
+                 "dual_matmul_kernel": L * (n_chunks + steps),
+                 "fused_adapter_kernel": L * steps, "int8_matmul_kernel": 1 + steps})
+    print(f"[split] Magma.generate on {b} prompts of {LONG_IMAGES} images + text ({s} tokens, "
+          f"padded to {s_pad}; b·s = {b * s_pad} > {magma_mod.SPLIT_ABOVE}): split path calls "
+          f"{calls} (window, prefill_chunk; a spy on models/magma.generate_tokens_split), "
+          f"{n_chunks} chunks of {C}, {steps} steps, prefill {timing['prefill_ms']:.1f} ms, "
+          f"decode {timing['decode_ms'] / steps:.2f} ms/step (b = {b})")
+    print(f"[split]   launches {got}")
+    check(calls == [(8, C)], f"split generate not taken: {calls}")
+    check(got == want, f"split launches {got}, expected {want}")
+    check(((tokens >= 0) & (tokens < cfg.vocab_size)).all(), "split: token out of vocab")
+
+    padded = torch.nn.functional.pad(emb, (0, 0, 0, s_pad - s))
+    w0 = flash_attention_kernel.wgmma_launches
+    (mono, _), _, peak_mono = peak_run(lambda: sampling.generate_tokens(
+        cfg, lm, padded, None, max_steps=MAX_STEPS, temperature=0.0,
+        eos_token=model.eos_token, prompt_len=s))
+    print(f"[split] peak device memory: split {peak_split / 1e9:.2f} GB, monolithic "
+          f"{peak_mono / 1e9:.2f} GB ({resident / 1e9:.2f} GB resident before each: the model "
+          f"and what earlier phases keep); above it {(peak_split - resident) / 1e9:.2f} vs "
+          f"{(peak_mono - resident) / 1e9:.2f} GB")
+    same = int((mono.cpu() == torch.as_tensor(tokens)).sum())
+    print(f"[split] greedy tokens, split vs monolithic: equal at {same}/{b * MAX_STEPS}")
+
+    # the first step's logits: the chunked prefill (history attention) vs
+    # the whole-prompt one (K1), on the same inputs
+    pl = torch.full((b,), s, dtype=torch.int32, device=dev)
+    total = -(-max(s_pad + MAX_STEPS, n_chunks * C) // 64) * 64
+    cache = gptj.init_kv_cache(cfg, b, total, device=dev)
+    last_h = torch.zeros((b, 1, cfg.d_model), dtype=cfg.compute_dtype, device=dev)
+    for ci in range(n_chunks):
+        chunk = torch.nn.functional.pad(padded[:, ci * C:(ci + 1) * C],
+                                        (0, 0, 0, max(0, (ci + 1) * C - s_pad)))
+        cache, last_h = sampling._split_prefill_chunk(cfg, lm, chunk, cache, last_h, ci * C, pl,
+                                                      chunk=C)
+    got_l = gptj.lm_head(cfg, lm, last_h)[:, 0]
+    del cache
+    _, ref_l = sampling._split_prefill(cfg, lm, padded, pl, max_steps=MAX_STEPS)
+    diff = (got_l - ref_l)[:, :cfg.vocab_size].abs().max().item()
+    agree = int((got_l.argmax(-1) == ref_l.argmax(-1)).sum())
+    print(f"[split] first-step logits (fp32), chunked prefill vs the whole prompt's: max|diff| "
+          f"{diff:.4e} (tol {LOGIT_TOL}: the chunks' attention is the einsum path against K1, "
+          f"phase 4's comparison; logit std {ref_l.std().item():.3f}), argmax equal in "
+          f"{agree}/{b} rows")
+    check(torch.isfinite(got_l).all().item(), "split: non-finite first-step logits")
+    check(diff <= LOGIT_TOL, f"split first-step logits differ by {diff} > {LOGIT_TOL}")
+    # the whole-prompt prefills at b = 8 (generate_tokens' and the logits')
+    # run K1's wgmma body: 16 heads x 10 blocks of 128 rows x 8 >= 132
+    wgmma = flash_attention_kernel.wgmma_launches - w0
+    print(f"[split] K1 launches on the wgmma body: {wgmma} (the two whole-prompt b = {b} "
+          f"prefills; the split path runs no K1)")
+    check(wgmma == 2 * L, f"the whole-prompt b = {b} prefills ran {wgmma} K1 wgmma launches")
+    print(f"[split] phase time {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return got, wgmma
+
+
+def _trace(model):
+    """The trace's prompts, embedded once: N_CAPTIONS single-image captions,
+    then N_LONG eight-image prompts, each with its TRACE_SAMPLING index.
+    Returns [(embeddings, sampling index, kind)]."""
+    reqs = []
+    for i in range(N_CAPTIONS):
+        reqs.append((model.preprocess_inputs([_image(10 + i), PROMPT]),
+                     i % len(TRACE_SAMPLING), "caption"))
+    for i in range(N_LONG):
+        imgs = [_image(300 + 10 * i + k) for k in range(LONG_IMAGES)]
+        reqs.append((model.preprocess_inputs(imgs + [PROMPT]), i, "8 images"))
+    return reqs
+
+
+def _submit(engine, trace):
+    """Submit the trace in order through ``MagmaServingEngine.submit``.
+    Returns [(request id, sampling index, kind)]."""
+    return [(engine.submit(emb, MAX_STEPS, **TRACE_SAMPLING[j]), j, kind)
+            for emb, j, kind in trace]
+
+
+def _drive(torch, engine, check_syncs):
+    """Run the engine dry; with ``check_syncs`` every step runs under
+    ``set_sync_debug_mode("error")`` up to the collect of the previous
+    window (the one device-to-host copy a window).  Returns (wall s,
+    {request id: s to its first token})."""
+    first, collects = {}, []
+    orig = engine._collect_window
+    if check_syncs:
+        def collect(gi, prev, emitted):
+            torch.cuda.set_sync_debug_mode(0)
+            collects.append(1)
+            orig(gi, prev, emitted)
+
+        engine._collect_window = collect
+    t0 = time.perf_counter()
+    try:
+        while engine.has_work:
+            if check_syncs:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                emitted = engine.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            now = time.perf_counter() - t0
+            for rid in emitted:
+                first.setdefault(rid, now)
+    finally:
+        engine._collect_window = orig
+    check(not check_syncs or collects, "no window was collected")
+    return time.perf_counter() - t0, first
+
+
+def _replay(torch, eng_mod, args, sample_fn, n_steps, generator=None):
+    """A window replayed on a pool's state: it writes only positions the
+    real window writes again before any read.  Returns the logits seen."""
+    cfg, params, cache, last, lens, active = args[:6]
+    seen = []
+
+    def sampler(gen, logits):
+        seen.append(logits.float())
+        return sample_fn(gen, logits)
+
+    with torch.no_grad():
+        eng_mod._window_body(cfg, params, cache, last, lens, active, generator, sampler,
+                             n_steps=n_steps, eos_token=-1)
+    return seen
+
+
+def phase_engine(torch, model, bits, tag, smi):
+    """Phases 5d and 7b: ``MagmaServingEngine`` over two pools serves the
+    trace pipelined (the main path: exact launches, no host wait in a
+    dispatch) and unpipelined (the same deterministic tokens; one full
+    window of each pool replayed through the kernels and the plain path,
+    and profiled); the deterministic requests' first tokens against
+    ``Magma.generate``'s; a 1-slot engine's tokens against
+    ``Magma.generate``'s.  Returns the main path's launches by wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from magma_tpu_torch.serving import MagmaServingEngine
+    from magma_tpu_torch.serving import engine as eng_mod
+
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+    cfg = model.lm_config
+    L = cfg.n_layers
+    wrappers = _all_wrappers()
+    wgmma0 = flash_attention_kernel.wgmma_launches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: pipelined windows
+    for fn in wrappers.values():
+        fn.launches = 0  # count this path only
+    t_phase = time.perf_counter()
+    trace = _trace(model)
+    torch.cuda.reset_peak_memory_stats()
+    eng = MagmaServingEngine(model, seed=0, **ENGINE_KW)
+    reqs = _submit(eng, trace)
+    with _EngineProbe(torch) as probe:
+        wall, first = _drive(torch, eng, check_syncs=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: fn.launches for k, fn in wrappers.items()}
+    want = probe.want_launches(bits, L)
+    res = eng.finished
+    n_tok = sum(len(r.tokens) for r in res.values())
+    ttft = sorted(first[r] * 1e3 for r, _, _ in reqs)
+    pools = {B: sum(1 for w in probe.windows if w[0] == B) for B, _ in ENGINE_KW["cache_classes"]}
+    print(f"[{tag}] {len(reqs)} requests ({N_CAPTIONS} captions of one image, {N_LONG} of "
+          f"{LONG_IMAGES} images; {MAX_STEPS} new tokens each; sampling by index "
+          f"{TRACE_SAMPLING}), pools {ENGINE_KW['cache_classes']}, window "
+          f"{ENGINE_KW['decode_window']}, chunk {ENGINE_KW['prefill_chunk']}, prompts embedded "
+          f"before the first submit, pipelined: "
+          f"{len(probe.prefills)} full prefills, {probe.chunks} chunks, {probe.installs} "
+          f"installs, windows by pool rows {pools}")
+    print(f"[{tag}]   launches {got}")
+    check(got == want, f"{tag}: launches {got}, expected {want}")
+    check(got["fused_adapter_kernel"] > 0, f"{tag}: K5 never launched")
+    if bits == 4:
+        check(got["boundary_kernel"] > 0, f"{tag}: K6 never launched")
+    check(set(res) == {r for r, _, _ in reqs}, f"{tag}: not every request finished")
+    for rid, j, kind in reqs:
+        r = res[rid]
+        check(r.finish_reason in ("eos", "length") and 1 <= len(r.tokens) <= MAX_STEPS
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"{tag}: request {rid} ({kind}) ended {r.finish_reason} with {len(r.tokens)} tokens")
+    steps_ms = probe.ms_per_step()
+    print(f"[{tag}] on {smi}: {n_tok} tokens in {wall:.3f} s (host clock from the first "
+          f"step): {n_tok / wall:.1f} output tokens/s; time to first token median "
+          f"{statistics.median(ttft):.1f} ms, p90 {ttft[int(0.9 * (len(ttft) - 1))]:.1f} ms; "
+          f"ms per decode step by pool rows (CUDA events around each window, median): "
+          + ", ".join(f"{B} rows{' with a chunk' if piggy else ''} {ms:.2f} ({n} windows)"
+                      for (B, piggy), (ms, n) in steps_ms.items())
+          + f"; resident cache positions {eng.resident_cache_positions}; peak device memory "
+          f"{peak / 1e9:.2f} GB")
+    print(f"[{tag}] no host wait in any step's admission, prefills, chunks, installs and "
+          f"window dispatches (set_sync_debug_mode('error') up to each collect)")
+    texts = eng.text_results()
+    print(f"[{tag}] text of request 0: {texts[reqs[0][0]]!r}")
+    deterministic = {rid: res[rid].tokens for rid, j, _ in reqs if j in (0, 1)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same trace unpipelined; the first window of each pool with at
+    # least half its rows live replayed through the kernels and the plain
+    # path (all rows: the kernels see every row), and profiled
+    replayed = {}
+
+    def on_window(B, args, n_steps):
+        if B in replayed or 2 * int(args[5].sum()) < B:
+            return
+        greedy = eng_mod._static_sampler(cfg, 0.0, 0, 0.0, "reference")
+        k_l = _replay(torch, eng_mod, args, greedy, 1)[0]
+        with _PlainServing():
+            p_l = _replay(torch, eng_mod, args, greedy, 1)[0]
+        rel = _rel(k_l[:, :cfg.vocab_size], p_l[:, :cfg.vocab_size])
+        agree = int((k_l.argmax(-1) == p_l.argmax(-1)).sum())
+        top2 = p_l[:, :cfg.vocab_size].topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).min().item()
+        gen = torch.Generator(device=model.device)
+        walls = []
+        for _ in range(3):
+            gen.set_state(args[6].get_state())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _replay(torch, eng_mod, args, args[7], n_steps, gen)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        gen.set_state(args[6].get_state())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the kernels alone
+            _replay(torch, eng_mod, args, args[7], n_steps, gen)
+            torch.cuda.synchronize()
+        kernels = _kernel_events(torch, prof)
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        wall_ms = statistics.median(walls)
+        replayed[B] = (rel, agree)
+        print(f"[{tag}] a {B}-row decode step, kernels vs the plain path (their wrappers' "
+              f"plain versions on the card): logits rel {rel:.3e} (tol {PATH_REL_TOL}),"
+              f" argmax equal in {agree}/{B} rows (the plain path's least top-2 margin "
+              f"{margin:.3e})")
+        print(f"[{tag}] a {B}-row window of {n_steps} steps replayed: wall {wall_ms:.2f} ms "
+              f"(host clock, median of 3), {wall_ms / n_steps:.2f} ms a step; device busy "
+              f"{busy:.2f} ms in {len(kernels)} kernels, idle share "
+              + (f"{1 - busy / wall_ms:.3f}" if kernels else "not measured (no kernels seen)"))
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"[{tag}]   {ms:.3f} ms  {name[:90]}")
+
+    eng = MagmaServingEngine(model, seed=0, pipeline_windows=False, **ENGINE_KW)
+    reqs2 = _submit(eng, trace)
+    with _EngineProbe(torch, on_window):
+        _drive(torch, eng, check_syncs=False)
+    res2 = {rid: eng.finished[rid].tokens for rid, j, _ in reqs2 if j in (0, 1)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = list(deterministic.values()) == list(res2.values())
+    print(f"[{tag}] the {len(res2)} greedy and top_k = 1 requests, pipelined vs unpipelined: "
+          f"tokens identical: {same}")
+    check(same, f"{tag}: pipelined and unpipelined tokens differ")
+    for B, _ in ENGINE_KW["cache_classes"]:
+        check(B in replayed, f"{tag}: no {B}-row window was replayed")
+        rel, agree = replayed[B]
+        check(rel < PATH_REL_TOL and agree == B,
+              f"{tag}: a {B}-row step differs from the plain path: rel {rel}, argmax {agree}/{B}")
+
+    # the deterministic captions' first tokens against Magma.generate's
+    # (the same 1-row prefill; the eight-image prompts prefill in chunks)
+    captions = [(rid, emb) for (rid, j, kind), (emb, _, _) in zip(reqs, trace)
+                if kind == "caption" and j in (0, 1)]
+    for rid, emb in captions:
+        ref = model.generate(emb, max_steps=1, temperature=0.0, decode=False)[0, 0]
+        check(int(ref) == deterministic[rid][0], f"{tag}: request {rid}'s first token "
+              f"{deterministic[rid][0]} != Magma.generate's {int(ref)}")
+    print(f"[{tag}] first tokens of the {len(captions)} deterministic captions equal to "
+          f"Magma.generate's")
+
+    # one slot of generate's cache length: K8, as Magma.generate; the
+    # request through submit_prompt, the entry that embeds it
+    emb = trace[0][0]
+    n_cache = -(-(emb.shape[1] + MAX_STEPS) // 64) * 64
+    one = MagmaServingEngine(model, cache_classes=((1, n_cache),), decode_window=8)
+    rid = one.submit_prompt([_image(10), PROMPT], MAX_STEPS)
+    with _EngineProbe(torch) as probe1:
+        one.run()
+    ref = model.generate(emb, max_steps=MAX_STEPS, temperature=0.0, decode=False)[0].tolist()
+    eos = model.eos_token
+    ref = ref[:ref.index(eos) + 1] if eos in ref else ref
+    got1 = one.finished[rid].tokens
+    print(f"[{tag}] a (1, {n_cache}) pool: {len(got1)} tokens, windows by rows "
+          f"{sorted({w[0] for w in probe1.windows})}, identical to Magma.generate's: "
+          f"{got1 == ref}; text {one.text_results()[rid]!r}")
+    check(got1 == ref, f"{tag}: the 1-slot engine's tokens differ from Magma.generate's")
+    del one
+    wgmma = flash_attention_kernel.wgmma_launches - wgmma0
+    print(f"[{tag}] K1 launches on the wgmma body: {wgmma} (every 1-row prefill of 192 "
+          f"positions keeps the mma.sync body; chunks run no K1)")
+    check(wgmma == 0, f"{tag}: a 1-row serving prefill ran K1's wgmma body")
+    print(f"[{tag}] phase time {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return got
+
+
 def phase_train_kernels(torch):
     """K9a, K9b and K10 against their plain versions at the training
     shapes.  Returns their JSON entries by wrapper name (launches unset)."""
@@ -2238,6 +2753,8 @@ def main() -> int:
     paths = {"int8": phase_quantized(torch, model, 8)}
     paths["int8 agreement"] = phase_decode_agreement(torch, model, *paths["int8"][1:], "int8")
     paths["int8"] = paths["int8"][0]
+    paths["int8 split"], split_wgmma = phase_split_generate(torch, model)
+    paths["int8 engine"] = phase_engine(torch, model, 8, "int8 engine", smi)
     del model, emb, greedy_tokens  # free the int8 model before the int4 one
     gc.collect()
     torch.cuda.empty_cache()
@@ -2245,9 +2762,15 @@ def main() -> int:
     paths["int4"] = launches4
     paths["int4 agreement"] = phase_decode_agreement(torch, model, emb4, tokens4, "int4")
     paths["int4+kv8"] = phase_int4_kv8(torch, model, emb4, tokens4)
+    cfg6 = model.lm_config
+    model.lm_config = dataclasses.replace(cfg6, kv_cache_dtype="int8")
+    paths["int4+kv8 engine"] = phase_engine(torch, model, 4, "int4+kv8 engine", smi)
+    model.lm_config = cfg6
     print(f"[serving] K1 launches of the wgmma body over phases 3-7: "
-          f"{flash_attention_kernel.wgmma_launches} (every b = 1 prefill keeps the mma.sync body)")
-    check(flash_attention_kernel.wgmma_launches == 0, "a serving prefill ran K1's wgmma body")
+          f"{flash_attention_kernel.wgmma_launches}, {split_wgmma} of them phase 5c's b = 8 "
+          f"whole-prompt prefills (every b = 1 prefill keeps the mma.sync body)")
+    check(flash_attention_kernel.wgmma_launches == split_wgmma,
+          "a b = 1 serving prefill ran K1's wgmma body")
     del model, emb4, tokens4  # free the int4 model before training
     gc.collect()
     torch.cuda.empty_cache()

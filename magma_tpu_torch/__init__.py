@@ -3,11 +3,13 @@
 The JAX package ``magma_tpu`` stays the reference; this package mirrors its
 module layout and function names, imports torch (never jax), and replaces
 each Pallas kernel on its path with a hand-written Hopper kernel
-(``csrc/``).  It covers the single-image caption path:
-``Magma.from_checkpoint`` -> ``preprocess_inputs`` -> ``embed`` ->
-``generate``, at bf16 with prefill attention as a CUDA kernel, and after
-``Magma.quantize_for_serving(bits=8 or 4)`` with the quantized products
-and the whole-layer decode as CUDA kernels too; and adapter training
+(``csrc/``).  It covers the caption path: ``Magma.from_checkpoint`` ->
+``preprocess_inputs`` -> ``embed`` -> ``generate`` (split into chunked
+prefill and decode windows above 8192 positions), at bf16 with prefill
+attention as a CUDA kernel, and after ``Magma.quantize_for_serving(bits=8
+or 4)`` with the quantized products and the whole-layer decode as CUDA
+kernels too; continuous batching over size-classed KV cache pools
+(``LMServingEngine``, ``MagmaServingEngine``); and adapter training
 (``magma_tpu_torch.training.train_loop.Trainer``), bf16 or over the int8
 QLoRA layout, with the flash-attention backward and the int8 input
 gradient as CUDA kernels.
@@ -23,6 +25,8 @@ _LAZY = {
     "Magma": ("magma_tpu_torch.models.magma", "Magma"),
     "ImageInput": ("magma_tpu_torch.data.image_input", "ImageInput"),
     "get_transforms": ("magma_tpu_torch.data.transforms", "get_transforms"),
+    "LMServingEngine": ("magma_tpu_torch.serving", "LMServingEngine"),
+    "MagmaServingEngine": ("magma_tpu_torch.serving", "MagmaServingEngine"),
 }
 
 
@@ -37,4 +41,4 @@ def __getattr__(name):
 
 
 __all__ = ["MultimodalConfig", "load_config", "get_tokenizer", "Magma", "ImageInput",
-           "get_transforms", "is_main"]
+           "get_transforms", "LMServingEngine", "MagmaServingEngine", "is_main"]

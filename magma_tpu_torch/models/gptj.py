@@ -33,14 +33,20 @@ Training: ``forward`` without a cache is differentiable (flash attention
 through K1/K9a/K9b, the int8 products through K2a/K2b and K10), with remat
 as ``torch.utils.checkpoint`` around each layer; ``quantize_lm_params(
 fuse_out_proj=False)`` builds the QLoRA layout (in_proj fused, o and
-fc_out separate int8 stacks, bf16 adapters).  Ring/sp attention,
-``history_attention`` (the serving engine's chunked prefill), the
-tensor-parallel int8 layout and ``pack_lm_params_bf16`` are not ported.
+fc_out separate int8 stacks, bf16 adapters).  Serving:
+``forward(read_history=True)`` runs a chunk of s > 1 fresh positions
+against the cache history ``[0, cache_index)`` and causally against itself
+(``ops/attention.history_attention``: the chunked prefill of split
+generate and of the serving engine), and ``_write_cache`` clamps each
+row's start into ``[0, max_len - s]`` as ``dynamic_update_slice`` does.
+Ring/sp attention, the tensor-parallel int8 layout and
+``pack_lm_params_bf16`` are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -48,7 +54,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from magma_tpu_torch.models.adapters import AdapterSpec, apply_adapter, init_adapter
-from magma_tpu_torch.ops.attention import causal_attention, decode_attention
+from magma_tpu_torch.ops.attention import causal_attention, decode_attention, history_attention
 from magma_tpu_torch.ops.rotary import apply_rotary, rotary_sincos
 from magma_tpu_torch.utils import round_up
 
@@ -395,12 +401,15 @@ def _block(
     kv_len: Optional[torch.Tensor],
     cache_kv: Optional[Tuple[Dict, int]],
     cache_index,
+    read_history: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """One GPT-J block: parallel attention + FFN off a single layernorm.
 
-    With ``cache_kv = (cache, layer)``: s > 1 is a prefill over fresh keys,
-    s == 1 a decode step that reads the layer's cache; either way the new
-    K/V are returned for the bulk write in ``forward``."""
+    With ``cache_kv = (cache, layer)``: s > 1 is a prefill over fresh keys
+    (with ``read_history``, a chunk that also attends to the cache history
+    ``[0, cache_index)``), s == 1 a decode step that reads the layer's
+    cache; either way the new K/V are returned for the bulk write in
+    ``forward``."""
     b, s, D = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     cdt = cfg.compute_dtype
@@ -421,7 +430,11 @@ def _block(
     kk = apply_rotary(kk, sin, cos, cfg.rotary_dim)
 
     new_kv = None
-    if cache_kv is None or s > 1:
+    if cache_kv is not None and s > 1 and read_history:
+        cache, layer = cache_kv
+        attn = history_attention(q, cache["k"][layer], cache["v"][layer], cache_index, kk, v,
+                                 scale=scale, kv_len=kv_len, kv_scales=_layer_scales(cache, layer))
+    elif cache_kv is None or s > 1:
         attn = causal_attention(q, kk, v, scale=scale, impl=cfg.attention_impl,
                                 kv_len=kv_len)
     else:
@@ -590,24 +603,40 @@ def _run_decode_boundary(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, sin, co
 def _write_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
                  cache_index) -> Dict:
     """Write all layers' new K/V, (L, b, s, h, hd), into the cache at
-    ``cache_index`` (an int, a scalar tensor, or per-row (b,)).  An int8
-    cache quantizes the entries here, its only write point, and writes the
-    scales on their position axis 3.  Updates the cache in place (the JAX
-    package returns a new one) and returns it."""
+    ``cache_index`` (an int, a scalar tensor, or per-row (b,)).  Each row's
+    start clamps into ``[0, max_len - s]``, as ``dynamic_update_slice``
+    clamps it in the JAX package (``gptj.py:809-853``): a write at
+    ``max_len`` lands at ``max_len - s``.  An int8 cache quantizes the
+    entries here, its only write point, and writes the scales on their
+    position axis 3.  Updates the cache in place (the JAX package returns a
+    new one) and returns it."""
     b, s = k_new.shape[1:3]
+    max_len = cache["k"].shape[2]
+    if "k_scale" in cache:
+        entries = {}
+        for name, new in (("k", k_new), ("v", v_new)):
+            entries[name], entries[f"{name}_scale"] = _quantize_kv(new)
+    else:
+        entries = {"k": k_new.to(cache["k"].dtype), "v": v_new.to(cache["v"].dtype)}
+    if isinstance(cache_index, numbers.Integral):
+        # a host index: plain slices, no index tensor copied to the card
+        st = min(max(int(cache_index), 0), max_len - s)
+        for name, new in entries.items():
+            if name.endswith("_scale"):
+                cache[name][..., st:st + s] = new
+            else:
+                cache[name][:, :, st:st + s] = new
+        return cache
     dev = cache["k"].device
     start = torch.as_tensor(cache_index, device=dev).to(torch.long).reshape(-1, 1)
-    pos = (start + torch.arange(s, device=dev)).expand(b, s)
+    pos = (start.clamp(0, max_len - s) + torch.arange(s, device=dev)).expand(b, s)
     rows = torch.arange(b, device=dev)[:, None].expand(b, s)
-    if "k_scale" in cache:
-        for name, new in (("k", k_new), ("v", v_new)):
-            q, sc = _quantize_kv(new)
-            cache[name][:, rows, pos] = q
+    for name, new in entries.items():
+        if name.endswith("_scale"):
             # a position-major view of the (L, b, h, max_len) scales
-            cache[f"{name}_scale"].transpose(-1, -2)[:, rows, pos] = sc.transpose(-1, -2)
-        return cache
-    cache["k"][:, rows, pos] = k_new.to(cache["k"].dtype)
-    cache["v"][:, rows, pos] = v_new.to(cache["v"].dtype)
+            cache[name].transpose(-1, -2)[:, rows, pos] = new.transpose(-1, -2)
+        else:
+            cache[name][:, rows, pos] = new
     return cache
 
 
@@ -630,6 +659,7 @@ def forward(
     cache_index=None,
     remat: Optional[bool] = None,
     return_hidden: bool = False,
+    read_history: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """LM forward from embeddings.  Returns (fp32 logits, cache), or
     (hidden after ln_f, cache) with ``return_hidden=True`` (the chunked
@@ -637,23 +667,30 @@ def forward(
     updated in place.  Without a cache, ``remat`` (default ``cfg.remat``)
     runs each layer under ``torch.utils.checkpoint(use_reentrant=False)``
     when autograd records: the backward recomputes the layer (its K1 and
-    int8 products launch again) instead of keeping its activations."""
+    int8 products launch again) instead of keeping its activations.
+    ``read_history`` (with a cache): a chunk of s > 1 positions attends to
+    the history ``[0, cache_index)`` as well as causally to itself, and the
+    fused decode paths stand down, as in the JAX package
+    (``gptj.py:1207, 1220``)."""
     b, s, _ = inputs_embeds.shape
     cdt = cfg.compute_dtype
     x = inputs_embeds.to(cdt)
     dev = x.device
-    if positions is None:  # without a cache, no host scalar is copied to the card
-        positions = torch.arange(s, device=dev).expand(b, s)
-        if cache_index is not None:
-            start = torch.as_tensor(cache_index, device=dev)
-            positions = (start.reshape(-1, 1) + positions).expand(b, s)
+    if positions is None:  # no host scalar is copied to the card
+        start = 0 if cache_index is None else cache_index
+        if isinstance(start, numbers.Integral):
+            positions = torch.arange(int(start), int(start) + s, device=dev).expand(b, s)
+        else:
+            positions = (torch.as_tensor(start, device=dev).reshape(-1, 1)
+                         + torch.arange(s, device=dev)).expand(b, s)
     sin, cos = rotary_sincos(positions, cfg.rotary_dim)
 
     blocks = params["blocks"]
-    if cache is not None and _declayer_ok(cfg, blocks, x, cache):
+    fused_ok = cache is not None and not read_history
+    if fused_ok and _declayer_ok(cfg, blocks, x, cache):
         x, k_news, v_news = _run_decode_fused_layers(cfg, blocks, x, positions, cache,
                                                      cache_index)
-    elif cache is not None and _boundary_ok(cfg, blocks, x):
+    elif fused_ok and _boundary_ok(cfg, blocks, x):
         x, k_news, v_news = _run_decode_boundary(cfg, blocks, x, sin, cos, cache, cache_index)
     elif cache is None and (cfg.remat if remat is None else remat) and torch.is_grad_enabled():
         for bp in _layer_views(blocks, cfg.n_layers):
@@ -662,7 +699,8 @@ def forward(
         k_news, v_news = [], []
         for i, bp in enumerate(_layer_views(blocks, cfg.n_layers)):
             x, new_kv = _block(cfg, bp, x, sin, cos, kv_len,
-                               None if cache is None else (cache, i), cache_index)
+                               None if cache is None else (cache, i), cache_index,
+                               read_history)
             if new_kv is not None:
                 k_news.append(new_kv[0])
                 v_news.append(new_kv[1])

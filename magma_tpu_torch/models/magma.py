@@ -25,11 +25,14 @@ import torch
 from magma_tpu_torch.config import MultimodalConfig
 from magma_tpu_torch.models import gptj, image_prefix as ip_mod
 from magma_tpu_torch.models.adapters import AdapterSpec
-from magma_tpu_torch.ops.sampling import generate_tokens, strip_after_eos
+from magma_tpu_torch.ops.sampling import generate_tokens, generate_tokens_split, strip_after_eos
 from magma_tpu_torch.tokenizer import get_tokenizer
 from magma_tpu_torch.training.labels import (build_labels, causal_lm_loss,
                                              causal_lm_loss_chunked)
 from magma_tpu_torch.utils import to_dtype, tree_map, tree_paths
+
+# b·s (after padding to 64) above which generate takes the split path
+SPLIT_ABOVE = 8192
 
 
 def build_lm_config(config: MultimodalConfig) -> gptj.GPTJConfig:
@@ -200,7 +203,10 @@ class Magma:
 
         The prompt pads to a multiple of 64 as in the JAX package
         (``prompt_len`` masks the padding), then ``generate_tokens`` runs
-        one prefill and the decode loop.  ``prompt_len`` (optional, (b,))
+        one prefill and the decode loop; above 8192 padded positions (b·s)
+        ``generate_tokens_split`` prefills in 512-position chunks and
+        decodes in windows of 8 (``magma.py:296-298``), which bounds the
+        prefill's activations.  ``prompt_len`` (optional, (b,))
         gives per-row true lengths of right-padded prompts; ``timing``
         receives the stage times (see ``generate_tokens``) and ``steps``.
         Returns decoded strings, or the (b, max_steps) token array with
@@ -215,11 +221,14 @@ class Magma:
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.seed()
-        tokens, steps = generate_tokens(
+        gen, extra = generate_tokens, {}
+        if embeddings.shape[0] * embeddings.shape[1] > SPLIT_ABOVE:
+            gen, extra = generate_tokens_split, dict(window=8, prefill_chunk=512)
+        tokens, steps = gen(
             self.lm_config, self.params["lm"], embeddings, generator,
             max_steps=max_steps, temperature=float(temperature), top_k=int(top_k),
             top_p=float(top_p), eos_token=self.eos_token, prompt_len=prompt_len,
-            timing=timing,
+            timing=timing, **extra,
         )
         if timing is not None:
             timing["steps"] = steps

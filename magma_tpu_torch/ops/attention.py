@@ -11,13 +11,16 @@ Port of ``magma_tpu/ops/attention.py``.  Two prefill implementations:
 
 All ops take and return (b, s, h, hd); softmax statistics are fp32 whatever
 the input dtype.  ``decode_attention`` reads a bf16 or an int8 cache (its
-scales folded into the scores and the weights, as in the JAX package).
-``history_attention``, reached only by the serving engine's chunked
-prefill, is not ported.
+scales folded into the scores and the weights, as in the JAX package);
+``history_attention`` (a prefill chunk against the cache history and
+itself: the chunked prefill of split generate and of the serving engine)
+generalises it to s > 1 queries.  Both stay einsum paths, as in the JAX
+package, which runs them outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
+import numbers
 from typing import Optional
 
 import torch
@@ -137,3 +140,52 @@ def decode_attention(
         out = out + torch.einsum("bhqk,bkhd->bqhd", weights[..., max_len:],
                                  v_self.to(wdt).float()).to(wdt)
     return out
+
+
+def history_attention(
+    q: torch.Tensor,        # (b, s, h, hd) fresh queries
+    k_cache: torch.Tensor,  # (b, max_len, h, hd) one layer's cache
+    v_cache: torch.Tensor,
+    hist_len,               # int, scalar or (b,): valid history positions
+    k_self: torch.Tensor,   # (b, s, h, hd) this chunk's keys and values
+    v_self: torch.Tensor,
+    *,
+    scale: float,
+    kv_len: Optional[torch.Tensor] = None,  # (b,) true fresh lengths
+    kv_scales=None,         # (k_scale, v_scale), each (b, h, max_len): int8 cache
+) -> torch.Tensor:
+    """Chunked-prefill attention (``attention.py:101-168``): each query
+    attends to the cache history ``[0, hist_len)`` and causally to its own
+    chunk, masked to the chunk's first ``kv_len`` keys.  One fp32 softmax
+    over ``max_len + s`` columns; an int8 cache's scales fold into the
+    history's score and weight columns as in ``decode_attention``."""
+    b, s = q.shape[:2]
+    max_len = k_cache.shape[1]
+    dev = q.device
+    s_hist = _scores_f32(q, k_cache, scale)
+    if kv_scales is not None:
+        k_sc, v_sc = kv_scales
+        s_hist = s_hist * k_sc[:, :, None, :].float()
+    if isinstance(hist_len, numbers.Integral):
+        hist = torch.arange(max_len, device=dev) < hist_len
+    else:
+        hist_len = torch.as_tensor(hist_len, device=dev).reshape(-1, 1).expand(b, 1)
+        hist = torch.arange(max_len, device=dev)[None, :] < hist_len
+    s_hist = s_hist.masked_fill(~hist.reshape(-1, 1, 1, max_len), NEG_INF)
+
+    s_self = _scores_f32(q, k_self, scale)
+    mask = _causal_mask(s, s, 0, dev)[None, None]
+    if kv_len is not None:
+        mask = mask & (torch.arange(s, device=dev)[None, :]
+                       < kv_len.to(dev)[:, None])[:, None, None, :]
+    s_self = s_self.masked_fill(~mask, NEG_INF)
+
+    wdt = q.dtype if kv_scales is not None else v_cache.dtype
+    weights = torch.softmax(torch.cat([s_hist, s_self], -1), dim=-1).to(wdt)
+    w_hist = weights[..., :max_len]
+    if kv_scales is not None:
+        w_hist = w_hist * v_sc[:, :, None, :].to(wdt)
+    out = torch.einsum("bhqk,bkhd->bqhd", w_hist.float(), v_cache.float()).to(wdt)
+    out = out + torch.einsum("bhqk,bkhd->bqhd", weights[..., max_len:].float(),
+                             v_self.to(wdt).float()).to(wdt)
+    return out.to(q.dtype)

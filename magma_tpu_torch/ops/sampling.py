@@ -17,8 +17,19 @@ the filters and ``strip_after_eos`` of ``magma_tpu/ops/sampling.py``
 The loop is an eager Python loop that reads one flag from the device per
 step to stop early.  Sampling draws from an explicit ``torch.Generator``,
 so sampled tokens differ from the JAX package's for the same seed; greedy
-tokens do not.  ``sample_token_batched`` and ``generate_tokens_split`` are
-not ported.
+tokens do not.  A draw is ``torch.multinomial``'s own (exponential noise,
+then the argmax of p / q) without its checks, which read the device.
+
+``sample_token_batched`` takes per-row (temperature, top_k, top_p) device
+tensors (the serving engine's mixed windows) with ``sample_token``'s
+semantics row by row: top-k with ties at the k-th value kept, then top-p
+over the filtered logits (the JAX package's batched sampler takes top-p
+over the unfiltered logits and cuts ties; the port does not copy that).
+``generate_tokens_split`` prefills whole or in ``prefill_chunk`` chunks
+(``read_history``), which bounds activation memory at any (batch x
+context), then decodes in windows with one host read per window; its draws
+are ``generate_tokens``'s, in the same order, so for one generator seed
+both give the same tokens.
 """
 
 from __future__ import annotations
@@ -79,8 +90,63 @@ def sample_token(
         logits = top_k_filter(logits, top_k)
     if top_p > 0.0:
         logits = top_p_filter(logits, top_p, mode=top_p_mode)
-    probs = torch.softmax(logits / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return _categorical(generator, torch.softmax(logits / temperature, dim=-1))
+
+
+def _categorical(generator: Optional[torch.Generator], probs: torch.Tensor) -> torch.Tensor:
+    """One draw per row from (b, V) probabilities: ``torch.multinomial(probs,
+    1)``'s draw, the same numbers taken from ``generator`` (exponential q,
+    argmax p / q), without its validity checks, which wait for the card."""
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
+
+
+def _batched_filter(logits: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,
+                    top_p_mode: str) -> torch.Tensor:
+    """Per-row top-k then top-p, ``sample_token``'s filters, off one
+    descending stable sort: -inf where a row's filters drop a logit.  A
+    row's ``top_k <= 0`` or ``top_p <= 0`` turns that filter off."""
+    if top_p_mode not in ("reference", "standard"):
+        raise ValueError(f"top_p mode must be 'reference' or 'standard', got {top_p_mode!r}")
+    sorted_logits, order = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = top_k.to(torch.long).clamp(1, logits.shape[-1])
+    kth = sorted_logits.gather(-1, (k - 1)[:, None])
+    # ties at the k-th value stay, as in top_k_filter
+    keep = (top_k <= 0)[:, None] | (sorted_logits >= kth)
+    sorted_logits = sorted_logits.masked_fill(~keep, NEG_INF)
+    # top-p over the top-k-filtered logits, as top_p_filter follows top_k_filter:
+    # the filtered ranks are the sort's tail, so this sort serves both
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    p = top_p.float()[:, None]
+    remove = cum < (1.0 - p) if top_p_mode == "reference" else cum > p
+    remove = torch.cat([torch.zeros_like(remove[..., :1]), remove[..., :-1]], dim=-1)
+    sorted_logits = sorted_logits.masked_fill(remove & (p > 0.0), NEG_INF)
+    return torch.empty_like(logits).scatter_(-1, order, sorted_logits)
+
+
+def sample_token_batched(
+    generator: Optional[torch.Generator],
+    logits: torch.Tensor,          # (b, V) fp32
+    temperature: torch.Tensor,     # (b,): 0 rows decode greedily
+    top_k: torch.Tensor,           # (b,) int: <= 0 disables
+    top_p: torch.Tensor,           # (b,): <= 0 disables
+    *,
+    vocab_size: int,
+    top_p_mode: str = "reference",
+) -> torch.Tensor:
+    """``sample_token`` with per-row sampling parameters as device tensors
+    (``sampling.py:119-167``): each row is ``sample_token`` with its own
+    settings; greedy rows take the argmax.  Every row draws, so a batch
+    whose rows share one setting takes ``sample_token``'s draws.  Returns
+    (b,) int64 token ids."""
+    if logits.shape[-1] > vocab_size:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(col >= vocab_size, NEG_INF)
+    filtered = _batched_filter(logits, top_k, top_p, top_p_mode)
+    t = temperature.float()
+    safe_t = torch.where(t > 0, t, torch.ones_like(t))[:, None]
+    sampled = _categorical(generator, torch.softmax(filtered / safe_t, dim=-1))
+    return torch.where(t > 0, sampled, torch.argmax(logits, dim=-1))
 
 
 @torch.no_grad()
@@ -128,9 +194,7 @@ def generate_tokens(
     hidden, cache = gptj.forward(cfg, params, embeddings, cache=cache,
                                  cache_index=0, kv_len=prompt_len,
                                  return_hidden=True)
-    rows = torch.arange(b, device=dev)
-    last_h = hidden[rows, prompt_len.long() - 1][:, None]
-    last = gptj.lm_head(cfg, params, last_h)[:, 0]
+    last = gptj.lm_head(cfg, params, _last_true_hidden(hidden, prompt_len))[:, 0]
     t_prefill = _mark(dev) if timing is not None else None
 
     tokens = torch.full((b, max_steps), eos_token, dtype=torch.long, device=dev)
@@ -151,6 +215,142 @@ def generate_tokens(
         logits, cache = gptj.forward(cfg, params, emb, cache=cache, cache_index=cur_len)
         last = logits[:, -1]
         cur_len = cur_len + 1
+    if timing is not None:
+        t_end = _mark(dev)
+        timing["prefill_ms"] = _elapsed_ms(t_start, t_prefill)
+        timing["decode_ms"] = _elapsed_ms(t_prefill, t_end)
+    return tokens, step
+
+
+def _last_true_hidden(hidden: torch.Tensor, prompt_len: torch.Tensor) -> torch.Tensor:
+    """(b, s, D) -> (b, 1, D) at each row's last true position."""
+    rows = torch.arange(hidden.shape[0], device=hidden.device)
+    return hidden[rows, prompt_len.long() - 1][:, None]
+
+
+def _split_prefill(cfg, params, embeddings, prompt_len, *, max_steps):
+    """The split generate's whole-prompt prefill: a cache sized for
+    ``max_steps`` decode positions, and the last true position's logits."""
+    from magma_tpu_torch.models import gptj
+
+    b, s, _ = embeddings.shape
+    cache = gptj.init_kv_cache(cfg, b, round_up(s + max_steps, 64), device=embeddings.device)
+    hidden, cache = gptj.forward(cfg, params, embeddings, cache=cache, cache_index=0,
+                                 kv_len=prompt_len, return_hidden=True)
+    return cache, gptj.lm_head(cfg, params, _last_true_hidden(hidden, prompt_len))[:, 0]
+
+
+def _split_prefill_chunk(cfg, params, emb_chunk, cache, last_h, offset: int, prompt_len, *,
+                         chunk: int):
+    """One chunk of the split prefill (``sampling.py:346-375``): attends to
+    the cache history ``[0, offset)`` and to itself (``read_history``) and
+    carries each row's hidden state at its last true position.  A row whose
+    prompt ended before this chunk writes K/V past its length; a position
+    p >= prompt_len is read only after the decode step that overwrites it."""
+    from magma_tpu_torch.models import gptj
+
+    fresh = (prompt_len - offset).clamp(0, chunk)
+    hidden, cache = gptj.forward(cfg, params, emb_chunk, cache=cache, cache_index=offset,
+                                 kv_len=fresh, return_hidden=True, read_history=True)
+    last_pos = prompt_len.long() - 1
+    has_last = (last_pos >= offset) & (last_pos < offset + chunk)
+    rows = torch.arange(hidden.shape[0], device=hidden.device)
+    cand = hidden[rows, (last_pos - offset).clamp(0, chunk - 1)][:, None]
+    return cache, torch.where(has_last[:, None, None], cand, last_h)
+
+
+def _split_window(cfg, params, cache, last_logits, done, cur_len, generator, *, window,
+                  temperature, top_k, top_p, eos_token, top_p_mode):
+    """``window`` decode steps: ``generate_tokens``'s loop body (the same
+    draws in the same order, the same EOS holding), each step's forward run
+    whatever ``done`` says.  Returns (cache, last logits, done, cur_len,
+    tokens (b, window))."""
+    from magma_tpu_torch.models import gptj
+
+    toks = []
+    for _ in range(window):
+        tok = sample_token(generator, last_logits, temperature=temperature, top_k=top_k,
+                           top_p=top_p, vocab_size=cfg.vocab_size, top_p_mode=top_p_mode)
+        tok = torch.where(done, eos_token, tok)
+        done = done | (tok == eos_token)
+        toks.append(tok)
+        emb = gptj.embed_tokens(cfg, params, tok[:, None])
+        logits, cache = gptj.forward(cfg, params, emb, cache=cache, cache_index=cur_len)
+        last_logits = logits[:, -1]
+        cur_len = cur_len + 1
+    return cache, last_logits, done, cur_len, torch.stack(toks, dim=1)
+
+
+@torch.no_grad()
+def generate_tokens_split(
+    cfg,
+    params,
+    embeddings: torch.Tensor,      # (b, s, D) prompt embeddings
+    generator: Optional[torch.Generator] = None,
+    *,
+    max_steps: int = 100,
+    temperature: float = 0.7,
+    top_k: int = 0,
+    top_p: float = 0.9,
+    eos_token: int = 50256,
+    prompt_len=None,               # None, int, or (b,) true lengths
+    top_p_mode: str = "reference",
+    window: int = 8,
+    prefill_chunk: int = 0,
+    timing: Optional[dict] = None,
+) -> Tuple[torch.Tensor, int]:
+    """``generate_tokens`` as a prefill and decode windows
+    (``sampling.py:424-491``).  ``prefill_chunk > 0`` prefills a prompt
+    longer than it in chunks of that many positions through
+    ``read_history``, so prefill activations stay one chunk's worth at any
+    (batch x context); the last chunk pads to a whole chunk and the cache
+    rounds up to hold it.  Then windows of ``window`` steps, with one host
+    read a window for the early exit.  Returns (tokens (b, max_steps), the
+    steps run: ``max_steps`` or, after an early exit, the end of the last
+    window); positions after every row's EOS are EOS, as in
+    ``generate_tokens``, whose draws these are.  ``timing`` as there."""
+    from magma_tpu_torch.models import gptj
+
+    b, s, D = embeddings.shape
+    dev = embeddings.device
+    t_start = _mark(dev) if timing is not None else None
+    if prompt_len is None:
+        prompt_len = s
+    prompt_len = torch.as_tensor(prompt_len, device=dev).to(torch.int32).reshape(-1).expand(b)
+
+    if prefill_chunk and s > prefill_chunk:
+        C = prefill_chunk
+        n_chunks = -(-s // C)
+        # the padded last chunk writes up to n_chunks * C
+        cache = gptj.init_kv_cache(cfg, b, round_up(max(s + max_steps, n_chunks * C), 64),
+                                   device=dev)
+        last_h = torch.zeros((b, 1, D), dtype=cfg.compute_dtype, device=dev)
+        for ci in range(n_chunks):
+            emb_c = embeddings[:, ci * C:(ci + 1) * C]
+            if emb_c.shape[1] < C:
+                emb_c = torch.nn.functional.pad(emb_c, (0, 0, 0, C - emb_c.shape[1]))
+            cache, last_h = _split_prefill_chunk(cfg, params, emb_c, cache, last_h, ci * C,
+                                                 prompt_len, chunk=C)
+        last = gptj.lm_head(cfg, params, last_h)[:, 0]
+    else:
+        cache, last = _split_prefill(cfg, params, embeddings, prompt_len, max_steps=max_steps)
+    t_prefill = _mark(dev) if timing is not None else None
+
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    cur_len = prompt_len.clone()
+    out, step = [], 0
+    while step < max_steps:
+        w = min(window, max_steps - step)
+        cache, last, done, cur_len, toks = _split_window(
+            cfg, params, cache, last, done, cur_len, generator, window=w,
+            temperature=temperature, top_k=top_k, top_p=top_p, eos_token=eos_token,
+            top_p_mode=top_p_mode)
+        out.append(toks)
+        step += w
+        if bool(done.all()):
+            break
+    tokens = torch.full((b, max_steps), eos_token, dtype=torch.long, device=dev)
+    tokens[:, :step] = torch.cat(out, dim=1)
     if timing is not None:
         t_end = _mark(dev)
         timing["prefill_ms"] = _elapsed_ms(t_start, t_prefill)

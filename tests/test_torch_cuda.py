@@ -1292,3 +1292,230 @@ def test_train_step_reads_nothing_from_the_card(layout, dev):
     assert all(isinstance(x, torch.Tensor) and x.is_cuda for x in losses)
     assert torch.isfinite(torch.stack(losses)).all()
     assert int(trainer.optimizer.count) == 4 and int(trainer.optimizer.total_notfinite) == 0
+
+
+# ---------------------------------------------------------------------------
+# The serving engine on the card: its decode windows (K8 at one slot; K2b,
+# K4a, K5 or K3 and K6 at 8; the int8 and W4A8 tiles and K5 at 16), a step
+# at cache_index = max_len, and a dispatch that waits for nothing
+# ---------------------------------------------------------------------------
+
+# a decode step through the kernels against the plain path (the same model
+# on the CPU): JAX's bound for two decode paths of one model
+# (tests/test_decode_layer.py:92-107), logits within 3e-2 of their largest
+# magnitude, argmax equal
+SERVE_REL_TOL = 3e-2
+SERVE_L, SERVE_MAX_LEN = 2, 256
+
+
+def _serving_lm(dev, fmt):
+    """The kernels' geometry at 2 layers (8 heads of 256, d_model 2048,
+    d_ff 2048), the v1 mlp adapter (fused: hidden 512); int8 weights over a
+    bf16 cache or int4 weights over an int8 cache.  Returns (cfg, params on
+    the CPU, params on the card)."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.models.adapters import AdapterSpec
+
+    cfg = gptj.GPTJConfig.tiny(n_layers=SERVE_L, n_heads=8, d_model=2048, d_ff=2048,
+                               rotary_dim=64, attention_impl="flash", param_dtype=torch.bfloat16,
+                               mlp_adapter=AdapterSpec("normal", 4),
+                               kv_cache_dtype="int8" if fmt == "int4" else "bf16")
+    params = gptj.init_params(torch.Generator().manual_seed(0), cfg)
+    for proj in ("down", "up"):  # trained-scale adapters so they matter
+        ad = params["blocks"]["adapter_mlp"][proj]
+        ad["kernel"] = torch.randn(ad["kernel"].shape,
+                                   generator=torch.Generator().manual_seed(1)) * 0.05
+    quantize = gptj.quantize_lm_params_int4 if fmt == "int4" else gptj.quantize_lm_params
+    params = quantize(params)
+    return cfg, params, _to(params, dev)
+
+
+def _serving_wrappers():
+    from magma_tpu_torch.ops import decode_layer as dl
+
+    return {n: getattr(quant, n) for n in (
+        "int8_matmul_kernel", "int8_matmul_stacked_kernel", "dual_matmul_kernel",
+        "fused_adapter_kernel", "int4_matmul_stacked_kernel", "int4_dual_kernel",
+        "boundary_kernel")} | {"decode_all_layers_kernel": dl.decode_all_layers_kernel}
+
+
+def _want_window_launches(fmt, B, steps):
+    """Launches of ``steps`` decode steps of a B-row pool."""
+    L = SERVE_L
+    inproj = "int4_matmul_stacked_kernel" if fmt == "int4" else "int8_matmul_stacked_kernel"
+    if B == 1:  # layer 0's in_proj, then all layers in one K8
+        want = {inproj: 1, "decode_all_layers_kernel": 1}
+    elif fmt == "int4" and B <= 8:  # layer 0's in_proj, then K6 a layer
+        want = {inproj: 1, "boundary_kernel": L}
+    else:
+        dual = "int4_dual_kernel" if fmt == "int4" else "dual_matmul_kernel"
+        want = {inproj: L, dual: L, "fused_adapter_kernel": L}
+    want["int8_matmul_kernel"] = 1  # the head
+    return {n: want.get(n, 0) * steps for n in _serving_wrappers()}
+
+
+def _admitted_engine(dev, cfg, params, B, **kw):
+    """An engine of one (B, 256) pool with B requests of 40-100 positions
+    installed (its prefills: K1 and the prefill products)."""
+    from magma_tpu_torch.serving import LMServingEngine
+
+    eng = LMServingEngine(cfg, params, cache_classes=((B, SERVE_MAX_LEN),), device=dev,
+                          decode_window=2, prefill_bucket=64, **kw)
+    g = torch.Generator().manual_seed(5)
+    for i in range(B):
+        s = 40 + (i * 37) % 61
+        eng.submit(torch.randn((s, cfg.d_model), generator=g).to(torch.bfloat16),
+                   max_new_tokens=8)
+    eng._admit({})
+    assert all(s is not None for s in eng.groups[0].slots)
+    return eng
+
+
+def _window_logits(cfg, params, cache, last, lens, dev, steps=2, force=None):
+    """``steps`` greedy decode steps of a pool through the engine's window,
+    recording each step's logits; ``force`` (B, steps) feeds those tokens
+    instead of the argmax.  Returns (logits (steps, B, V), tokens)."""
+    from magma_tpu_torch.serving import engine as teng
+
+    seen = []
+
+    def greedy(_, logits):
+        seen.append(logits.float().cpu())
+        if force is not None:
+            return force[:, len(seen) - 1].to(logits.device)
+        return logits.argmax(-1)
+
+    B = last.shape[0]
+    with torch.no_grad():
+        _, toks = teng._decode(cfg, params, cache, last.to(dev), lens.to(dev),
+                               torch.ones(B, dtype=torch.bool, device=dev), None, greedy,
+                               n_steps=steps, eos_token=50256)
+    return torch.stack(seen), toks.cpu()
+
+
+@pytest.mark.parametrize("B", [1, 8, 16])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_engine_window_matches_plain_path(fmt, B, dev):
+    """A pool's decode window on the card against the same window of the
+    same model on the CPU (the plain versions), fed the card's tokens:
+    logits within SERVE_REL_TOL of their largest magnitude at each step;
+    the same bits on a repeat; exact launches.  (K8 sits within 2^-3 of
+    its plain version's y after its layers, so a near tie may take
+    another argmax: the tokens are not held.)"""
+    cfg, cpu_params, params = _serving_lm(dev, fmt)
+    eng = _admitted_engine(dev, cfg, params, B, pipeline_windows=False)
+    g = eng.groups[0]
+    last = torch.from_numpy(g.last_toks.copy())
+    lens = torch.from_numpy(g.cur_lens.copy())
+    state = {k: t.clone() for k, t in g.cache.items()}
+    wrappers = _serving_wrappers()
+    before = {n: fn.launches for n, fn in wrappers.items()}
+    got, toks = _window_logits(cfg, params, {k: t.clone() for k, t in state.items()}, last,
+                               lens, dev)
+    torch.cuda.synchronize()
+    assert {n: fn.launches - before[n] for n, fn in wrappers.items()} == \
+        _want_window_launches(fmt, B, 2)
+    again, toks2 = _window_logits(cfg, params, {k: t.clone() for k, t in state.items()}, last,
+                                  lens, dev)
+    assert torch.equal(got, again) and torch.equal(toks, toks2)
+    ref, _ = _window_logits(cfg, cpu_params, {k: t.cpu() for k, t in state.items()}, last,
+                            lens, torch.device("cpu"), force=toks)
+    for step in range(got.shape[0]):
+        rel = ((got[step] - ref[step]).abs().max() / ref[step].abs().max()).item()
+        assert rel <= SERVE_REL_TOL, (step, rel)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_decode_step_at_max_len(fmt, b, dev):
+    """A decode step of rows whose cache is full (cache_index = max_len, as
+    a slot retired for "length" rides along in the engine): K8 (b = 1) or
+    the b <= 8 path (int8: K5 a layer; int4: K6 a layer) run without a
+    fault, the logits agree with the plain path's (SERVE_REL_TOL), the
+    write clamps to position max_len - 1 and every other position keeps
+    its bytes."""
+    from magma_tpu_torch.models import gptj
+
+    cfg, cpu_params, params = _serving_lm(dev, fmt)
+    L, h, hd, n = cfg.n_layers, cfg.n_heads, cfg.head_dim, SERVE_MAX_LEN
+    g = torch.Generator().manual_seed(9)
+    cache = gptj.init_kv_cache(cfg, b, n)
+    gptj._write_cache(cache, *(torch.randn((L, b, n, h, hd), generator=g).to(torch.bfloat16)
+                               for _ in range(2)), 0)
+    x = torch.randn((b, 1, cfg.d_model), generator=g).to(torch.bfloat16)
+    idx = torch.full((b,), n, dtype=torch.int32)
+    on_card = {k: t.to(dev) for k, t in cache.items()}
+    wrappers = _serving_wrappers()
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    with torch.no_grad():
+        logits, on_card = gptj.forward(cfg, params, x.to(dev), cache=on_card,
+                                       cache_index=idx.to(dev))
+    torch.cuda.synchronize()
+    got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    assert got == _want_window_launches(fmt, b, 1)
+    ref_cache = {k: t.clone() for k, t in cache.items()}
+    with torch.no_grad():
+        ref, ref_cache = gptj.forward(cfg, cpu_params, x, cache=ref_cache, cache_index=idx)
+    logits = logits.float().cpu()
+    assert torch.isfinite(logits).all()
+    rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= SERVE_REL_TOL, rel
+    for k, t in on_card.items():
+        t = t.cpu()
+        pos = (slice(None),) * (3 if k.endswith("_scale") else 2)
+        keep = pos + (slice(0, n - 1),)
+        assert torch.equal(t[keep], cache[k][keep]), k  # untouched below max_len - 1
+        last = pos + (slice(n - 1, n),)
+        assert not torch.equal(t[last], cache[k][last]), k  # the clamped write
+        assert torch.equal(ref_cache[k][keep], cache[k][keep]), k  # the plain path's too
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_engine_dispatch_waits_for_nothing(fmt, dev, monkeypatch):
+    """Every step's admission, prefills, chunks, installs and window
+    dispatches run under ``set_sync_debug_mode("error")``: only the
+    collect of the previous window (the one device-to-host copy a window)
+    reads the card.  Greedy, top_k = 1, sampled and top-p rows, and a
+    chunked prompt riding the windows."""
+    cfg, _, params = _serving_lm(dev, fmt)
+    from magma_tpu_torch.serving import LMServingEngine
+
+    eng = LMServingEngine(cfg, params, cache_classes=((8, SERVE_MAX_LEN),), device=dev,
+                          decode_window=2, prefill_bucket=64, prefill_chunk=64)
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randn((s, cfg.d_model), generator=g).to(torch.bfloat16).to(dev)
+               for s in (45, 70, 33, 150, 20)]
+    sampling = [{}, dict(temperature=0.8, top_k=1), dict(temperature=1.0),
+                dict(temperature=0.7, top_p=0.9), dict(temperature=0.7, top_k=5, top_p=0.5)]
+    ids = [eng.submit(p, max_new_tokens=6, **kw) for p, kw in zip(prompts, sampling)]
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):  # the mode is on where it is set
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch.ones(1, device=dev).item()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    orig = eng._collect_window
+    collects = []
+
+    def collect(gi, prev, emitted):
+        torch.cuda.set_sync_debug_mode(0)
+        collects.append(prev is not None)
+        orig(gi, prev, emitted)
+
+    monkeypatch.setattr(eng, "_collect_window", collect)
+    steps = 0
+    while eng.has_work:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        steps += 1
+        assert steps < 50
+    assert any(collects)
+    res = eng.finished
+    assert set(res) == set(ids)
+    for r in ids:
+        assert 1 <= len(res[r].tokens) <= 6 and res[r].finish_reason in ("eos", "length")
+        assert all(0 <= t < cfg.vocab_size for t in res[r].tokens)
