@@ -23,7 +23,7 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    inputs at the slice's shapes: K2b (in_proj) at M = 1, 5, 37, 192, 256,
    2048 and on the QLoRA layout's o and fc_out at M = 2048, K4a (o_proj +
    fc_out) at M = 1, 192, K5 (the adapter) at M = 1, 8, 16 (the serving
-   engine's pools), 64, K2a (the head) at
+   engine's pools), 64 (the same bits on a repeat), K2a (the head) at
    M = 1 and at path B's 256-position loss chunk; each timed with its plain
    version and a bf16 ``torch.matmul`` over weights dequantised outside
    the timed call, and every M > 8 result the same bits on a repeat.
@@ -44,7 +44,10 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    with and without the next in_proj, for the v1 adapter and for an
    attention adapter (scaled_parallel) beside the mlp one with o_bias; each
    timed with its plain version and bf16 PyTorch calls over weights
-   dequantised outside the timed call (K6: the same ops as a chain).
+   dequantised outside the timed call (K6: the same ops as a chain); K6's
+   per-phase breakdown at M = 1 and 8 (v1, with the next in_proj: its
+   stamped build's %globaltimer stamps, as K8's in phase 2d), the stamped
+   launch holding K6's bits.
 2d. K7 and K8 (whole decode layers, ``ops/decode_layer.py``) against their
    plain versions at full width, on seeded int4 and int8 28-layer stacks
    built on the card, over a bf16 and an int8 cache of 256 positions filled
@@ -644,8 +647,11 @@ def phase_int8_kernels(torch):
                     lambda: quant.fused_adapter_stacked_plain(x, fz, next(it)), library,
                     nbytes(x, fz["wd"][0], fz["wu"][0]) + 4 * (2 * DH + 2 * D) + m * D * 4,
                     2 * m * 2 * D * DH, "fused_adapter_kernel")
+        check(torch.equal(out, quant.fused_adapter_stacked(x, fz, 5)),
+              f"K5 M={m}: another result on a repeat")
+        # the JSON line carries the main path's case: the engine's 8-row pool
         report("fused_adapter_kernel", "K5 adapter", m, err.max().item(), ok,
-               tm if m == 1 else None)
+               tm if m == 8 else None)
     del fz, lib_d, lib_u, lib_b
 
     # K2a: the untied head, decode's M=1 and path B's 256-position loss
@@ -807,12 +813,38 @@ def phase_int4_kernels(torch):
                           f"{equal:.4%} of elements equal")
                 tm = _time_boundary(torch, quant, f"K6 boundary, {name}, w_in {with_in}",
                                     args, ckw, w)
-                # the JSON line carries the main path's case: M=1, v1, w_in
+                # the JSON line carries the main path's case: the engine's
+                # 8-row pool, v1, w_in
+                main = m == 8 and with_in and "v1" in name
                 report("boundary_kernel", f"K6 boundary, {name}, w_in {with_in}", m,
-                       max(errs), ok, tm if m == 1 and with_in and "v1" in name else None)
+                       max(errs), ok, tm if main else None)
+                if with_in and "v1" in name:
+                    _k6_phase_breakdown(torch, quant, args, ckw, m, got)
     for wrapper, (name, replaces, source) in INT4_KERNELS.items():
         entries[wrapper].update(name=name, route="cuda", replaces=replaces, source=source)
     return entries
+
+
+def _k6_phase_breakdown(torch, quant, args, kw, m, got):
+    """Where K6's time goes: its stamped build (``quant.boundary_stamped``;
+    never on the main path) writes each block's %globaltimer at the start
+    and the end of each phase.  Per phase the slowest block's end minus the
+    first block's start, and the wait after it (a grid barrier, or the
+    arrivals and the counters before owned sums); the median of 5 launches
+    after a warm one.  The stamped launch must give K6's bits."""
+    runs = []
+    for i in range(6):
+        *outs, stamps = quant.boundary_stamped(*args, **kw)
+        torch.cuda.synchronize()
+        if i == 0:
+            check(all(torch.equal(a, b) for a, b in zip(outs, got)),
+                  f"K6 M={m}: the stamped build differs from K6")
+        else:
+            runs.append(quant.phase_breakdown(stamps))
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    print(f"[K6 boundary, v1, w_in] M={m} phase breakdown (ms, globaltimer stamps, median of "
+          f"5; the phase: slowest block's end - first block's start; then the wait): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
 
 
 def _time_boundary(torch, quant, label, args, kw, w):
@@ -884,7 +916,7 @@ def _time_boundary(torch, quant, label, args, kw, w):
     return _timing(torch, label, m,
                    lambda: quant.boundary_fused_stacked(*rest, next(it_k), **kw),
                    lambda: quant.boundary_fused_stacked_plain(*rest, next(it_p), **kw),
-                   library, nbytes(*reads) + n_vec * D * 4 + n_out, ops, "boundary_kernel",
+                   library, nbytes(*reads) + n_vec * D * 4 + n_out, ops, "boundary_stream_kernel",
                    ops_per_s=INT8_OPS, library_is="the same ops as a chain of bf16 PyTorch calls")
 
 

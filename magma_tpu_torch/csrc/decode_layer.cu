@@ -12,7 +12,7 @@
 //   y    = x + a + m                       (bf16 adds, in that order)
 //   u    = bf16(LN(y) * ln_g + ln_b)       (fp32 statistics)
 //   fused of the next layer = bf16(u @ W_in[l + 1]), unless the last layer
-// with K6's arithmetic (layer_phases.cuh): W4A8 for the int4 stacks (the
+// with K6's arithmetic (boundary.cu): W4A8 for the int4 stacks (the
 // terms of each 512-row group summed in order, w4a8.cuh), W8A16 for the
 // int8 ones, the fused int8 adapters of K5.  k_new = bf16(rotated k) and
 // v_new = v go out as rows for the caller's bulk cache write.  K8 chains
@@ -75,9 +75,10 @@
 // within a warp, the warps in order, the chunks in order; the W4A8 dots in
 // int32) and no float atomics, so a launch repeats its bits and K7 is K8's
 // body over [l, l + 1).  The W4A8 terms are w4a8.cuh's and their sums keep
-// the order of layer_phases.cuh (K6), so the int4 results over a bf16 cache
-// repeat the phase-per-barrier design's this one replaced, bit for bit; the
-// W8A16 products sum 256-row chunks, not K6's kc-row ones.  Weights and
+// K6's order (boundary.cu: each group's term, in order from 0), so the int4
+// results over a bf16 cache repeat the phase-per-barrier design's this one
+// replaced, bit for bit; the W8A16 products sum 256-row chunks, not that
+// design's kc-row ones.  Weights and
 // the cache are never written in the launch, so their TMA reads (the async
 // proxy) need no fence; what the launch writes is read through L2
 // (ld.global.cg) after the barrier or the counter that publishes it.

@@ -1,7 +1,8 @@
 """Device time of the port's int8 weight-only products at M > 8 (K2a, K2b,
 K4a), of their input gradient (K10), of the W4A8 products (K3, K4b), of
-flash attention at the training shape (K1, K9a, K9b) and of the whole-layer
-decode step (K8), compared between checkouts of the repository on one GPU.
+flash attention at the training shape (K1, K9a, K9b), of the fused adapter
+(K5), the layer boundary (K6) and the whole-layer decode step (K8),
+compared between checkouts of the repository on one GPU.
 
     python scripts/torch_tiles_ab.py DIR [DIR ...] [--repeat 1] [--calls 20]
         [--only K1,K9a,K9b]
@@ -25,6 +26,15 @@ per run and the medians per checkout.
 The K1 rows time path A's layer attention (b 2), path B's (b 1) and the
 caption prefill's (b 1, s 256, kv_len 149), each through the wrapper, whichever
 body it picks; each prints a sha256 digest of O and lse.
+
+The K5 rows run ``fused_adapter_kernel`` on the v1 adapter of GPT-J 6B (D
+4096, DH 1024; 28 seeded layers cycled) at M = 1, 8, 16 and 64 rows; the
+K6 rows ``boundary_kernel`` at M = 1 and 8 on seeded int4 stacks of 4
+layers (the dual, the next layer's in_proj, the v1 mlp adapter), with the
+next in_proj ("w_in") and as the last layer (without it).  Each prints a
+sha256 digest of its outputs on layer 0 and, beside the kernel alone, a
+call's time by CUDA events (the median of ``--calls`` x 5 calls, the
+wrapper included), so a call's host time is the difference.
 
 The K8 rows run ``decode_all_layers_fused`` over seeded GPT-J 6B stacks (28
 layers, int4 or int8, the v1 mlp adapter of width 1024) and a seeded bf16 or
@@ -73,6 +83,16 @@ SHAPES = (
     ("K9a dK,dV", "flash_dkv", (2, 2048, None), 16, 256, 1),
     ("K9b dQ", "flash_dq", (2, 2048, None), 16, 256, 1),
     # K8: the weight format, then the cache's, in place of K and N
+    # K5: the v1 adapter's D and DH; K6: the weight format and the case in
+    # place of K and N
+    ("K5 adapter", "k5", 1, D, 1024, 28),
+    ("K5 adapter", "k5", 8, D, 1024, 28),
+    ("K5 adapter", "k5", 16, D, 1024, 28),
+    ("K5 adapter", "k5", 64, D, 1024, 28),
+    ("K6 boundary w_in", "k6", 1, "int4", "w_in", 4),
+    ("K6 boundary w_in", "k6", 8, "int4", "w_in", 4),
+    ("K6 boundary last", "k6", 1, "int4", "last", 4),
+    ("K6 boundary last", "k6", 8, "int4", "last", 4),
     ("K8 int4 bf16-cache", "k8", 1, "int4", "bf16", 28),
     ("K8 int4 int8-cache", "k8", 1, "int4", "int8", 28),
     ("K8 int8 bf16-cache", "k8", 1, "int8", "bf16", 28),
@@ -81,7 +101,49 @@ SHAPES = (
 K8_POS, K8_MAX_LEN = 180, 256
 # the substrings of the kernel names each kind is timed by
 MATCH = {"flash_fwd": ("flash_fwd",), "flash_dkv": ("flash_bwd_dkv",),
-         "flash_dq": ("flash_bwd_dq",), "k8": ("decode_",)}
+         "flash_dq": ("flash_bwd_dq",), "k8": ("decode_",), "k5": ("fused_adapter",),
+         "k6": ("boundary",)}
+
+
+@functools.lru_cache(maxsize=1)
+def _k5_adapter(torch, quant, d, dh, L):
+    """The seeded v1 adapter of ``L`` layers, packed on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def vec(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    return quant.quantize_adapter_fused(vec(L, d, dh, std=0.05), vec(L, dh),
+                                        vec(L, dh, d, std=0.05), vec(L, d),
+                                        out_scale=1 + vec(L, std=0.5))
+
+
+@functools.lru_cache(maxsize=1)
+def _k6_stacks(torch, quant, L):
+    """Seeded int4 GPT-J 6B stacks of ``L`` layers for the boundary: the
+    dual, the in_proj, the v1 mlp adapter and the vectors."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def stack(k, n):
+        packs = [quant.quantize_int4(torch.randn((k, n), generator=g, device=dev) * 0.02,
+                                     compiled=True) for _ in range(L)]
+        return {key: torch.stack([p[key] for p in packs]) for key in packs[0]}
+
+    o, f = stack(D, D), stack(F_, D)
+    dual = {"q4": torch.cat([o["q4"], f["q4"]], 1), "s4": torch.cat([o["s4"], f["s4"]], 1)}
+    del o, f
+    w_in = stack(D, 3 * D + F_)
+
+    def vec(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    fz = quant.quantize_adapter_fused(vec(L, D, 1024, std=0.05), vec(L, 1024),
+                                      vec(L, 1024, D, std=0.05), vec(L, D),
+                                      out_scale=1 + vec(L, std=0.5))
+    vecs = (vec(L, D), 1 + vec(L, D, std=0.1), vec(L, D))  # b_fc_out, ln_g, ln_b
+    return dual, w_in, fz, vecs
 
 
 @functools.lru_cache(maxsize=1)
@@ -154,6 +216,17 @@ def _inputs(torch, quant, g, dev, kind, m, k, n, layers):
     kind's kernel wrapper on layer i: (weights, scales, call); for K1 and
     K9 the seeded q, k, v, dO of one layer's attention: (q, lse, call)."""
     bf16 = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    if kind == "k5":
+        fz = _k5_adapter(torch, quant, k, n, layers)
+        x = bf16(m, k)
+        return None, None, lambda i: quant.fused_adapter_kernel(x, fz, i)
+    if kind == "k6":
+        dual, w_in, fz, (b_fc_out, ln_g, ln_b) = _k6_stacks(torch, quant, layers)
+        ctx, mh = bf16(m, D), (bf16(m, F_).float() * 0.5).to(torch.bfloat16)
+        x = (bf16(m, D).float() * 0.3).to(torch.bfloat16)
+        kw = dict(fz_mlp=fz, mlp_src="out", w_in=w_in if n == "w_in" else None)
+        return None, None, lambda i: quant.boundary_kernel(ctx, mh, x, dual, b_fc_out, ln_g,
+                                                           ln_b, i, **kw)
     if kind == "k8":
         from magma_tpu_torch.ops import decode_layer as dl
 
@@ -198,6 +271,22 @@ def _inputs(torch, quant, g, dev, kind, m, k, n, layers):
     return wq, s, lambda i: quant.int8_matmul_stacked_kernel(x, wq, s, i)
 
 
+def _call_ms(torch, call, it, n: int) -> float:
+    """Median ms of one call between two CUDA events: the kernel and what
+    the wrapper spends on the host before the launch reaches the card."""
+    for _ in range(5):
+        call(next(it))
+    times = []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        call(next(it))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _child(tree: Path, calls: int, only: tuple) -> dict:
     sys.path.insert(0, str(tree))
     import torch
@@ -219,9 +308,15 @@ def _child(tree: Path, calls: int, only: tuple) -> dict:
             continue
         wq, s, call = _inputs(torch, quant, g, dev, kind, m, k, n, layers)
         match = MATCH.get(kind, ("w4a8",) if kind.startswith("int4") else ("int8", "gemv", "mma"))
-        it = itertools.cycle(range(layers))
+        # K6 with the next in_proj reads layer i + 1: the last layer is not an i
+        it = itertools.cycle(range(layers - 1 if kind == "k6" and n == "w_in" else layers))
+        key = (label if kind == "k8" else f"{label} b={m[0]} s={m[1]}" if kind.startswith("flash")
+               else f"{label} M={m}")
         if kind in ("k8", "flash_fwd"):  # K8's y, k_new, v_new; K1's O and lse
             out[f"{label} digest"] = _digest(call(0))
+        if kind in ("k5", "k6"):  # K5's out; K6's y, u (and fused)
+            out[f"{key} digest"] = _digest([call(0)] if kind == "k5" else call(0))
+            out[f"{key} call"] = _call_ms(torch, call, it, 5 * calls)
         for _ in range(3):
             call(next(it))
         torch.cuda.synchronize()
@@ -237,8 +332,6 @@ def _child(tree: Path, calls: int, only: tuple) -> dict:
             if (e.device_type == torch.autograd.DeviceType.CUDA
                     and any(word in e.name for word in match)):
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
-        key = (label if kind == "k8" else f"{label} b={m[0]} s={m[1]}" if kind.startswith("flash")
-               else f"{label} M={m}")
         out[key] = sum(statistics.fmean(t) for t in by_name.values()) if by_name else None
         if kind.startswith("int4") and m > 8:  # the activation pre-pass's share
             out[f"{label} M={m} pre-pass"] = sum(

@@ -308,12 +308,14 @@ def test_dual_kernel_matches_plain(m, dev):
     assert torch.equal(a, a2) and torch.equal(mo, mo2)
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 9, 64])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 16, 33, 64])
 @pytest.mark.parametrize("d, dh", [(512, 128), (4096, 1024)])
 def test_fused_adapter_kernel_matches_plain(m, d, dh, dev):
     """h is rounded to bf16 in both: an h on a rounding boundary may land
     one bf16 ulp (2^-8 relative) apart, which moves out by at most
-    2^-8 |h| |Wu| su; the sums differ as in the int8 products."""
+    2^-8 |h| |Wu| su; the sums differ as in the int8 products.  Rows pad
+    to 8, 16, 32 or 64 (33: a ragged 40 of the 64 tile); the chunk sums
+    have a fixed order, so a repeat gives the same bits."""
     from magma_tpu_torch.ops import quant
 
     g = torch.Generator(device=dev).manual_seed(4)
@@ -532,7 +534,7 @@ def _boundary_payloads(dev, variant):
 
 @pytest.mark.parametrize("w_in", [True, False], ids=["with_w_in", "last_layer"])
 @pytest.mark.parametrize("variant", ["v1", "scaled"])
-@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
 def test_boundary_kernel_matches_plain(m, variant, w_in, dev):
     """K6 against the composition of the plain K4b, K5 and K3.  The dual
     and in_proj sums are the plain version's bits; the adapters' int8 sums
@@ -562,6 +564,55 @@ def test_boundary_kernel_matches_plain(m, variant, w_in, dev):
         assert (diff == 0).float().mean() >= 0.9
     again = quant.boundary_fused_stacked(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("o_bias", [False, True], ids=["no_bias", "o_bias"])
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+def test_boundary_kernel_dual_and_in_proj_are_the_plain_products(m, o_bias, dev):
+    """Without adapters K6's y is the plain version's bit for bit (each
+    W4A8 group's term in w4a8_term's unfused steps, the groups added in
+    order from 0, then the same bf16 adds), and its fused is the plain
+    W4A8 in_proj of its own u, rounded to bf16, bit for bit."""
+    from magma_tpu_torch.ops import quant
+
+    dual, w_inp, bfo, ln_g, ln_b, _ = _boundary_payloads(dev, "v1")
+    ctx, mh = _bf16_rows(dev, m, 4096, 20), _bf16_rows(dev, m, 16384, 21, 0.5)
+    x = _bf16_rows(dev, m, 4096, 22, 0.3)
+    ob = (torch.randn((2, 4096), generator=torch.Generator(device=dev).manual_seed(23),
+                      device=dev) * 0.02) if o_bias else None
+    args = (ctx, mh, x, dual, bfo, ln_g, ln_b, 0)
+    y, u, fused = quant.boundary_fused_stacked(*args, w_in=w_inp, o_bias=ob)
+    ry, _, _ = quant.boundary_fused_stacked_plain(*args, w_in=w_inp, o_bias=ob)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ry)
+    want = quant.int4_matmul_stacked_plain(u, w_inp["q4"], w_inp["s4"], 1).to(torch.bfloat16)
+    assert torch.equal(fused, want)
+
+
+def test_boundary_stamped_matches_kernel(dev):
+    """The stamped build computes what the kernel does, bit for bit, and
+    stamps every phase of the v1 layer on every block; it is not counted
+    as a launch."""
+    from magma_tpu_torch.ops import quant
+
+    dual, w_inp, bfo, ln_g, ln_b, kw = _boundary_payloads(dev, "v1")
+    ctx, mh = _bf16_rows(dev, 8, 4096, 10), _bf16_rows(dev, 8, 16384, 11, 0.5)
+    x = _bf16_rows(dev, 8, 4096, 12, 0.3)
+    args = (ctx, mh, x, dual, bfo, ln_g, ln_b, 0)
+    got = quant.boundary_kernel(*args, w_in=w_inp, **kw)
+    before = quant.boundary_kernel.launches
+    *stamped, stamps = quant.boundary_stamped(*args, w_in=w_inp, **kw)
+    torch.cuda.synchronize()
+    assert quant.boundary_kernel.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, stamped))
+    # every block stamps the item phases and the LN; the owners of sums
+    # their sums
+    ran = [name for i, name in enumerate(quant.BOUNDARY_PHASES)
+           if bool((stamps[:, i, 1] > 0).any())]
+    assert ran == list(quant.BOUNDARY_PHASES)
+    assert bool((stamps[:, quant.BOUNDARY_PHASES.index("dual"), 1] > 0).all())
+    phases = quant.phase_breakdown(stamps)
+    assert phases["total"] > 0 and all(v >= 0 for k, v in phases.items() if "wait" not in k)
 
 
 @pytest.mark.parametrize("bad", ["int4_zero_rows", "int4_k_not_512", "int4_fp32_x",
