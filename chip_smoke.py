@@ -145,6 +145,34 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    3L + 8 a micro-step beside K1/K9 (the plain path also swaps K2a, K2b and
    K10 for their plain versions), then the overfit gate: 10 steps on one
    fixed batch, the 10th loss below the 1st by OVERFIT_MARGIN.
+10. The other towers: configs/MAGMA_v1.yml with ``encoder_name`` "clip"
+   (the ViT-B/32 at 224 px, 12 x 768, 12 heads) and then "nfresnet50"
+   ((3, 4, 6, 3), the random crop at v1's 384 px, seeded before each
+   request), GPT-J 6B at full width, ``quantize_for_serving(8)`` (the
+   NF-ResNet model shares the ViT model's int8 LM and folds its own tower):
+   each tower's pooled prefix in fp32 on the card against the same weights
+   on the CPU, then phase 5's three requests with exact launches (the
+   24-position prompt, 2 prefix and 22 text positions, pads to 64 rows, so
+   K5 runs once a layer in the prefill),
+   each request's prefill logits against every kernel's plain version, and
+   vision+prefix ms.
+11. The train CLI: 24 seeded JPEGs of mixed sizes and 6 VQA questions
+   written under build/smoke_cli, then ``magma_tpu_torch.train.main`` in
+   process on a yml that is v1 at full width and seq 2048 cut to 4 steps
+   of batch 4 (ga 2), eval every 2 steps (eval loss, captions with their
+   image grid, VQA accuracy), no checkpoint: exact launches of every
+   train step (K1 2L, all on its wgmma body, K9a L, K9b L a micro-step),
+   eval forward, caption prefill and VQA prefill (K1 L each), finite
+   losses, the step's host-clock ms and loader wait, the decoder (native
+   or PIL, with the native build's error); then one more step of the CLI's
+   trainer profiled (device busy, idle share against the CLI's step wall).
+12. The classifier: ``MagmaClassifier`` from v1 with a 2-class head at full
+   width, two ``train_step_classification`` steps (ga 2 x 1) on batches of
+   two images a sample and one ``eval_step_classification``, with exact
+   launches (K1 all on its wgmma body), then one micro-batch's logits and
+   loss through the kernels against the plain path.
+Each of phases 10-12 prints its time; ``--only 10,11,12`` runs just those
+after the build (a partial run, without the last two lines).
 
 No b = 1 serving prefill of phases 3-7 may run K1's wgmma body: on it
 phase 6b's int8-cache agreement fails; phase 5c's b = 8 whole-prompt
@@ -1525,19 +1553,23 @@ def _all_wrappers():
     return wrappers
 
 
-def _want_launches(bits, L, steps):
-    """Exact launches of one request of ``steps`` tokens (1 prefill + steps-1
-    decode forwards) on the v1 recipe, by wrapper."""
+def _want_launches(bits, L, steps, rows):
+    """Exact launches of one request of ``steps`` tokens (1 prefill of
+    ``rows`` padded positions + steps-1 decode forwards) on the v1 recipe,
+    by wrapper."""
+    from magma_tpu_torch.ops.quant import FUSED_ADAPTER_MAX_ROWS
+
     if bits == 8:
-        # prefill: K2b and K4a once a layer (the adapter's 192 rows take the
-        # dequantising matmul, no K5); a decode step: K2b for layer 0's
-        # in_proj, then one K8 for all layers; K2a once a forward
+        # prefill: K2b and K4a once a layer; a decode step: K2b for layer
+        # 0's in_proj, then one K8 for all layers; K2a once a forward
         want = {"int8_matmul_stacked_kernel": L + steps - 1, "dual_matmul_kernel": L,
                 "int8_matmul_kernel": steps}
     else:
         # the same with K3 and K4b; no K6
         want = {"int4_matmul_stacked_kernel": L + steps - 1, "int4_dual_kernel": L,
                 "int8_matmul_kernel": steps}
+    # the prefill's adapter: K5 up to 64 rows, else the dequantising matmul
+    want["fused_adapter_kernel"] = L if rows <= FUSED_ADAPTER_MAX_ROWS else 0
     want["decode_all_layers_kernel"] = steps - 1
     want["flash_attention_kernel"] = L
     return {k: want.get(k, 0) for k in _all_wrappers()}
@@ -1602,7 +1634,7 @@ def _requests_with_launches(torch, model, bits, tag):
         before = {k: fn.launches for k, fn in wrappers.items()}
         emb, tokens, steps = _run_request(torch, model, i, name, kw, tag)
         got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
-        want = _want_launches(bits, L, steps)
+        want = _want_launches(bits, L, steps, emb.shape[1] + (-emb.shape[1]) % 64)
         print(f"[{tag}]   launches {got}")
         check(got == want, f"{tag} request {i}: launches {got}, expected {want}")
         if greedy is None:
@@ -2758,9 +2790,459 @@ def phase_training(torch, path):
     return totals
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phases 10-12: the other image towers, the train CLI, the classifier
+# ---------------------------------------------------------------------------
+
+TOWERS = ("clip", "nfresnet50")
+# a tower's pooled prefix in fp32 on the card (TF32 off) against the same
+# weights in fp32 on the CPU: the same operations summed in another order
+# (cuDNN's convolutions, cuBLAS's products), ~1e-6 relative each, compounded
+# over the ViT's 12 blocks or the NF-ResNet's 17; each element within 1e-3
+# of the CPU prefix's largest magnitude
+TOWER_REL_TOL = 1e-3
+
+
+def _tower_config(name):
+    """configs/MAGMA_v1.yml with ``encoder_name`` set: GPT-J 6B at full width
+    and the tower at its published widths (ViT-B/32 at 224 px; NF-ResNet50
+    (3, 4, 6, 3), whose requests take the random crop at v1's image_size)."""
+    from magma_tpu_torch.config import MultimodalConfig
+
+    cfg = MultimodalConfig.from_yml(CONFIG)
+    cfg.encoder_name = name
+    return cfg
+
+
+def _tower_vs_cpu(torch, model, tag):
+    """The tower's pooled prefix (encoder, projection, dropout off, LN) in
+    fp32 on the card against the same weights in fp32 on the CPU, on two
+    seeded images.  Returns max|diff| / max|cpu|."""
+    from magma_tpu_torch.models import image_prefix as ip_mod
+    from magma_tpu_torch.utils import tree_map
+
+    pc = model.prefix_config
+    ov = dict(pc.encoder_overrides or ())
+    ov["compute_dtype"] = torch.float32
+    cfg32 = dataclasses.replace(pc, compute_dtype=torch.float32,
+                                encoder_overrides=tuple(sorted(ov.items())))
+    res = model.config.image_size if model.config.encoder_name == "nfresnet50" \
+        else pc.input_resolution
+    images = torch.randn((2, 3, res, res), generator=torch.Generator().manual_seed(11))
+    params = tree_map(lambda t: t.float(), model.params["image_prefix"])
+    state = model.state["image_prefix"]
+    card, _ = ip_mod.apply(params, state, images.cuda(), cfg32)
+    cpu, _ = ip_mod.apply(tree_map(lambda t: t.cpu(), params), tree_map(lambda t: t.cpu(), state),
+                          images, cfg32)
+    rel = ((card.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+    print(f"[{tag}] pooled prefix {tuple(card.shape)} in fp32, card vs CPU on the same weights: "
+          f"max|diff| / max|cpu| {rel:.3e} (tol {TOWER_REL_TOL})")
+    check(bool(torch.isfinite(card).all()), f"{tag}: non-finite prefix on the card")
+    check(rel <= TOWER_REL_TOL, f"{tag}: the card's prefix differs from the CPU's by {rel}")
+    return rel
+
+
+def _tower_requests(torch, model, tag):
+    """The three requests of phase 5, each with exact launches and its
+    prefill logits held against the same model with every kernel swapped for
+    its plain version.  The NF-ResNet's random crop is seeded before each.
+    Returns the requests' launches by wrapper, without the checks' prefills."""
+    import random
+
+    lm = model.lm_config
+    L = lm.n_layers
+    wrappers = _all_wrappers()
+    totals = dict.fromkeys(wrappers, 0)
+    vision_ms = []
+    for i, (name, kw) in enumerate(_requests()):
+        random.seed(1000 + i)
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        emb, tokens, steps = _run_request(torch, model, i, name, kw, tag)
+        got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        want = _want_launches(8, L, steps, emb.shape[1] + (-emb.shape[1]) % 64)
+        print(f"[{tag}]   launches {got}")
+        check(got == want, f"{tag} request {i}: launches {got}, expected {want}")
+        for k in totals:
+            totals[k] += got[k]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.preprocess_inputs([_image(), PROMPT])
+        end.record()
+        end.synchronize()
+        vision_ms.append(start.elapsed_time(end))
+        cfg0 = model.lm_config
+        got_logits = _prefill_last_logits(torch, cfg0, model.params["lm"], emb)
+        with _PlainServing():
+            ref = _prefill_last_logits(torch, dataclasses.replace(cfg0, attention_impl="xla"),
+                                       model.params["lm"], emb)
+        diff = (got_logits - ref)[: lm.vocab_size].abs().max().item()
+        print(f"[{tag}]   prefill logits (fp32), kernels vs every kernel's plain version: "
+              f"max|diff| {diff:.4e} (tol {LOGIT_TOL}; logit std {ref.std().item():.3f}), "
+              f"argmax equal: {int(got_logits.argmax()) == int(ref.argmax())}")
+        check(bool(torch.isfinite(got_logits).all()), f"{tag}: non-finite prefill logits")
+        check(diff <= LOGIT_TOL, f"{tag} request {i}: prefill logits differ by {diff}")
+    print(f"[{tag}] vision+prefix (preprocess_inputs of the 480x640 image and the prompt, CUDA "
+          f"events, warm): {statistics.median(vision_ms):.2f} ms (median of 3)")
+    return totals
+
+
+def phase_towers(torch):
+    """Phase 10: caption requests through the ViT-B/32 and the NF-ResNet50
+    on the int8 serving path.  The second model shares the first's int8 LM
+    (the same seed would draw the same LM) and draws its own tower.
+    Returns the launches by wrapper."""
+    from magma_tpu_torch.models import image_prefix as ip_mod
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+    dev = torch.device("cuda")
+    totals = dict.fromkeys(_all_wrappers(), 0)
+    lm_params = None
+    flash_attention_kernel.wgmma_launches = 0
+    for name in TOWERS:
+        t0 = time.perf_counter()
+        cfg = _tower_config(name)
+        if lm_params is None:
+            model = Magma(cfg, seed=0, device=dev)
+            model.quantize_for_serving(8)
+            lm_params = model.params["lm"]
+        else:
+            model = Magma(cfg, device=dev, init_weights=False)
+            g = torch.Generator(device=dev).manual_seed(0)
+            ip_params, ip_stats = ip_mod.init_params(g, model.prefix_config, dev)
+            model.params = {"lm": lm_params, "image_prefix": ip_params}
+            model.state = {"image_prefix": ip_stats}
+            model._fold_vision()  # quantize_for_serving's tower step; the LM is int8 already
+        torch.cuda.synchronize()
+        _, enc_cfg, pooled = model.prefix_config.encoder
+        tag = f"tower {name}"
+        print(f"[{tag}] Magma(v1, encoder_name={name!r}) + quantize_for_serving(8) in "
+              f"{time.perf_counter() - t0:.1f} s: {enc_cfg}, pooled {pooled}, prefix "
+              f"{model.image_prefix_seq_len} tokens, transform "
+              f"{getattr(model.transforms, '__qualname__', type(model.transforms).__name__)}"
+              + ("" if name == TOWERS[0] else "; it shares the ViT model's int8 LM instead of "
+                 "drawing another 6B"))
+        _tower_vs_cpu(torch, model, tag)
+        launches = _tower_requests(torch, model, tag)
+        for k in totals:
+            totals[k] += launches[k]
+        del model
+    check(flash_attention_kernel.wgmma_launches == 0, "a tower prefill ran K1's wgmma body")
+    del lm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+CLI_DIR = ROOT / "build" / "smoke_cli"
+
+
+def _write_cli_data(root):
+    """24 seeded JPEGs at mixed sizes with two captions each (an
+    ImgCptDataset), and 6 VQA questions over 6 more images."""
+    import json
+    import shutil
+
+    from PIL import Image
+
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    sizes = [(480, 640), (640, 480), (384, 384), (300, 500)]
+    for sub, n, vqa in (("train", 24, False), ("vqa", 6, True)):
+        for d in ("images/0", "image_data/0"):
+            (root / sub / d).mkdir(parents=True)
+        for i in range(n):
+            h, w = sizes[i % len(sizes)]
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+                root / sub / "images" / "0" / f"{i}.jpg", quality=90)
+            rec = {"image_path": f"images/0/{i}.jpg",
+                   "captions": [f"a painting of a scene number {i}", f"picture {i}"]}
+            if vqa:
+                rec["metadata"] = {"question": f"what is shown in picture {i}?",
+                                   "answers": ["painting", "painting", "scene"]}
+            (root / sub / "image_data" / "0" / f"{i}.json").write_text(json.dumps(rec))
+
+
+class _CallProbe:
+    """Within the block, each call of the named methods of ``owner`` (a class
+    or module) records the launches of every kernel it made (and K1's on the
+    wgmma body) and its host-clock ms."""
+
+    def __init__(self, owner, names):
+        self.owner, self.names, self.calls = owner, names, []
+
+    def __enter__(self):
+        from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+        wrappers = _all_wrappers()
+        self.saved = {n: getattr(self.owner, n) for n in self.names}
+
+        def probe(name, fn):
+            @functools.wraps(fn)
+            def wrapped(*a, **k):
+                before = {w: f.launches for w, f in wrappers.items()}
+                wg = flash_attention_kernel.wgmma_launches
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                ms = (time.perf_counter() - t0) * 1e3
+                got = {w: f.launches - before[w] for w, f in wrappers.items()}
+                got["k1_wgmma"] = flash_attention_kernel.wgmma_launches - wg
+                self.calls.append((name, got, ms))
+                return out
+            return wrapped
+
+        for n, fn in self.saved.items():
+            setattr(self.owner, n, probe(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.owner, n, fn)
+
+
+def _cli_yml(root, seq):
+    """configs/MAGMA_v1.yml at full width and seq 2048, cut to a run of 4
+    steps of batch 4 (ga 2), eval every 2 over 1 batch, VQA over 6
+    questions, no checkpoint (a 6B checkpoint is ~12 GB plus the optimizer's
+    state: the CPU test holds save and resume)."""
+    import yaml
+
+    from magma_tpu_torch.config import load_config
+
+    raw = load_config(CONFIG)
+    raw.update(batch_size=4, gradient_accumulation_steps=2, train_steps=4, log_every=1,
+               eval_every=2, eval_steps=1, save=None, load=None, seq_len=seq,
+               train_dataset_dir=str(root / "train"), eval_dataset_dir=None,
+               eval_dataset_pct=0.25, vqa_dir=str(root / "vqa"), num_workers=4,
+               warmup_num_steps=1)
+    path = root / "cli.yml"
+    path.write_text(yaml.safe_dump(raw))
+    return path
+
+
+def phase_cli(torch):
+    """Phase 11: ``magma_tpu_torch.train.main`` in-process at full width from
+    JPEGs on disk.  Returns the launches by wrapper (and K1's wgmma ones)."""
+    import json
+
+    from magma_tpu_torch import evaluation, native, train
+    from magma_tpu_torch.training.train_loop import Trainer
+
+    L, seq = 28, 2048
+    _write_cli_data(CLI_DIR)
+    yml = _cli_yml(CLI_DIR, seq)
+    decoder = "native" if native.available() else "PIL"
+    print(f"[cli] decoder {decoder}" + ("" if decoder == "native" else
+                                        f" (native build error: {native.build_error()})"))
+    wrappers = _all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0  # count this path only
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+    flash_attention_kernel.wgmma_launches = 0
+    t0 = time.perf_counter()
+    with _CallProbe(Trainer, ("train_step", "eval_step", "inference_step")) as tp, \
+            _CallProbe(evaluation, ("eval_vqa",)) as vp:
+        trainer = train.main(["--config", str(yml), "--log-dir", str(CLI_DIR / "log")])
+    wall = time.perf_counter() - t0
+    check(trainer.global_step == 4, f"cli: {trainer.global_step} steps, expected 4")
+    lm = trainer.model.lm_config
+    check(lm.n_layers == L and lm.d_model == 4096 and trainer.model.seq_len == seq,
+          "cli: not the full-width recipe")
+    ga = trainer.config.gradient_accumulation_steps
+    for name, got, ms in tp.calls + vp.calls:
+        print(f"[cli] {name}: {ms:.1f} ms (host clock), launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+        if name == "train_step":
+            want = {"flash_attention_kernel": 2 * L * ga, "flash_attention_bwd_dkv_kernel": L * ga,
+                    "flash_attention_bwd_dq_kernel": L * ga}
+            want = {k: want.get(k, 0) for k in wrappers}
+            check({k: got[k] for k in wrappers} == want,
+                  f"cli train_step launches {got}, expected {want}")
+            check(got["k1_wgmma"] == 2 * L * ga, f"cli: a training K1 missed the wgmma body: {got}")
+        else:  # each eval forward, caption prefill and VQA prefill: K1 once a layer
+            n_fwd = trainer.config.eval_steps if name == "eval_step" else 1
+            check(got["flash_attention_kernel"] == L * n_fwd,
+                  f"cli {name}: {got['flash_attention_kernel']} K1 launches")
+    metrics = [json.loads(x) for x in (CLI_DIR / "log" / "metrics.jsonl").read_text().splitlines()]
+    losses = [m["train/loss"] for m in metrics if "train/loss" in m]
+    step_s = [m["train/step_time"] for m in metrics if "train/step_time" in m]
+    waits = [m["train/loader_wait"] for m in metrics if "train/loader_wait" in m]
+    evals = [m["eval/loss"] for m in metrics if "eval/loss" in m]
+    captions = [m["inference/captions"] for m in metrics if "inference/captions" in m]
+    accs = [m["eval/vqa_accuracy"] for m in metrics if "eval/vqa_accuracy" in m]
+    print(f"[cli] {len(losses)} train losses {losses}, eval losses {evals}, VQA accuracies "
+          f"{accs}, captions {captions[:1]}")
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"cli: train losses {losses}")
+    check(len(evals) == 2 and all(np.isfinite(evals)), f"cli: eval losses {evals}")
+    check(len(captions) == 2 and all("Caption 0" in c for c in captions), "cli: no captions")
+    check(len(accs) == 2 and all(0.0 <= a <= 1.0 for a in accs), f"cli: VQA accuracies {accs}")
+    train_ms = [ms for name, _, ms in tp.calls if name == "train_step"]
+    print(f"[cli] step {statistics.median(step_s[1:]) * 1e3:.1f} ms a step (host clock, the "
+          f"loss read every step, median of steps 2-4), loader wait "
+          f"{statistics.median(waits[1:]) * 1e3:.2f} ms a step (median of steps 2-4; step 1 "
+          f"{waits[0] * 1e3:.1f} ms), train_step call {statistics.median(train_ms):.1f} ms "
+          f"(median dispatch, sync=False), whole run {wall:.1f} s, decoder {decoder}")
+    got = {k: fn.launches for k, fn in wrappers.items()}
+    got["k1_wgmma"] = flash_attention_kernel.wgmma_launches
+    # one more step of the CLI's trainer, profiled, against the CLI's step
+    # wall (its launches are not the main path's: counted before it)
+    _profile_train_step(torch, trainer, _train_batch(torch, trainer.config, seq, 900),
+                        statistics.median(step_s[1:]) * 1e3, "cli")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+# phase 12, one micro-batch through the kernels against the plain path.
+# The head's input, the ln_f state at the sample's last token (d_model
+# values), is what K1 reaches: held as |f - f_plain|_2 / |f_plain|_2.  The
+# LM's last-position logits are projections of the same kind of state; the
+# two paths' differ by 0.074-0.095 at most over 50k logits at std 1.28
+# (phases 4 and 10 on the H100), ~0.016-0.021 a logit (a max of 50k
+# normal draws is ~4.6 of them), 1.3-1.6% of the std; so the state is
+# expected ~1.5e-2 apart relative, and held at about 3 times that
+CLS_FEAT_TOL = 5e-2
+# its two logits through a seeded head of N(0, 1/d_model) weights, std ~1:
+# each ~0.016 apart by the same estimate, the larger of two within ~3 times
+# that (read 6.3e-3 on the H100)
+CLS_LOGIT_TOL = 5e-2
+# the cross-entropy moves by at most |p - onehot|_1 max|dlogit| <= 2
+# max|dlogit|: the bound that CLS_LOGIT_TOL implies, so the logits and the
+# state are the guard; the loss is held to show it comes from those logits
+CLS_LOSS_TOL = 2 * CLS_LOGIT_TOL
+
+
+def _nlvr2_batch(torch, cfg, seq, seed):
+    """A seeded NLVR2-style batch on the card: two images a sample, captions
+    of 64 random tokens then EOS padding, labels in {0, 1}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, r = cfg.batch_size, cfg.image_size
+    images = [torch.randn((b, 3, r, r), generator=g, device=dev) for _ in range(2)]
+    caps = torch.full((b, seq), 50256, dtype=torch.long, device=dev)
+    caps[:, :64] = torch.randint(0, 50000, (b, 64), generator=g, device=dev)
+    labels = torch.randint(0, 2, (b,), generator=g, device=dev)
+    return images, caps, labels
+
+
+def phase_classifier(torch):
+    """Phase 12: ``MagmaClassifier`` from configs/MAGMA_v1.yml with a 2-class
+    head at full width: two ``train_step_classification`` steps (ga 2 x
+    micro 1) on NLVR2-style batches, one ``eval_step_classification``, and
+    one micro-batch's loss and logits through the kernels against the plain
+    path.  Returns the launches by wrapper."""
+    from magma_tpu_torch.config import MultimodalConfig
+    from magma_tpu_torch.models.classifier import MagmaClassifier
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+    from magma_tpu_torch.training.train_loop import Trainer
+
+    cfg = MultimodalConfig.from_yml(CONFIG)
+    cfg.class_dict = {"num_classes": 2}
+    cfg.batch_size, cfg.gradient_accumulation_steps, cfg.warmup_num_steps = 2, 2, 1
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = MagmaClassifier(cfg, seed=0, device=dev)
+    trainer = Trainer(model, cfg)
+    torch.cuda.synchronize()
+    lm = model.lm_config
+    L, seq, ga = lm.n_layers, model.seq_len, cfg.gradient_accumulation_steps
+    print(f"[classifier] MagmaClassifier(v1, 2 classes, {model.interface_type}) + Trainer in "
+          f"{time.perf_counter() - t0:.1f} s: {L} layers, d_model {lm.d_model}, seq {seq}, "
+          f"ga {ga} x micro {cfg.batch_size // ga}, two images a sample "
+          f"({2 * model.image_prefix_seq_len} prefix tokens)")
+    wrappers = _all_wrappers()
+    totals = dict.fromkeys(wrappers, 0)
+    totals["k1_wgmma"] = 0
+    want_step = {"flash_attention_kernel": 2 * L * ga, "flash_attention_bwd_dkv_kernel": L * ga,
+                 "flash_attention_bwd_dq_kernel": L * ga}
+    for step in range(3):
+        images, caps, labels = _nlvr2_batch(torch, cfg, seq, 600 + step)
+        for fn in wrappers.values():
+            fn.launches = 0
+        flash_attention_kernel.wgmma_launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if step < 2:
+            loss, acc = trainer.train_step_classification(images, caps, labels)
+            want = {k: want_step.get(k, 0) for k in wrappers}
+            what = f"train step {step + 1}"
+        else:
+            loss, acc = trainer.eval_step_classification(images, caps, labels)
+            want = {k: L if k == "flash_attention_kernel" else 0 for k in wrappers}
+            what = "eval step"
+        end.record()
+        end.synchronize()
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        print(f"[classifier] {what}: loss {loss:.6f}, accuracy {acc:.2f}, "
+              f"{start.elapsed_time(end):.1f} ms, launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+              + f" (K1 on the wgmma body {flash_attention_kernel.wgmma_launches})")
+        check(np.isfinite(loss), f"classifier {what}: non-finite loss")
+        check(got == want, f"classifier {what}: launches {got}, expected {want}")
+        check(flash_attention_kernel.wgmma_launches == got["flash_attention_kernel"],
+              f"classifier {what}: a K1 launch missed the wgmma body")
+        for k in wrappers:
+            totals[k] += got[k]
+        totals["k1_wgmma"] += flash_attention_kernel.wgmma_launches
+
+    # one micro-batch, train=False, through the kernels and the plain path,
+    # over a head drawn from a seed (the trained head is near zero, its
+    # logits too small to compare), then over the identity, whose "logits"
+    # are the head's input
+    images, caps, labels = _nlvr2_batch(torch, cfg, seq, 700)
+    g = torch.Generator(device=dev).manual_seed(5)
+    heads = {"class": {"kernel": torch.randn((lm.d_model, 2), generator=g, device=dev)
+                       * lm.d_model ** -0.5, "bias": torch.zeros(2, device=dev)},
+             "state": {"kernel": torch.eye(lm.d_model, device=dev),
+                       "bias": torch.zeros(lm.d_model, device=dev)}}
+    out = {}
+    with torch.no_grad():
+        for path, lm_cfg in (("kernel", lm), ("plain", dataclasses.replace(lm, attention_impl="xla"))):
+            model.lm_config = lm_cfg
+            for head, w in heads.items():
+                loss, (_, logits) = model.classification_loss_fn(
+                    dict(trainer.params, class_head=w), trainer.state, [i[:1] for i in images],
+                    caps[:1], labels[:1], train=False)
+                out[path, head] = (loss.item(), logits.float())
+    model.lm_config = lm
+    (lk, gk), (lp, gp) = out["kernel", "class"], out["plain", "class"]
+    fk, fp = out["kernel", "state"][1], out["plain", "state"][1]
+    diff = (gk - gp).abs().max().item()
+    dloss = abs(lk - lp)
+    dfeat = ((fk - fp).norm() / fp.norm()).item()
+    print(f"[classifier] one micro-batch, kernels vs plain path: the head's input "
+          f"({fk.shape[-1]} values, std {fp.std().item():.3f}) |diff|_2 / |plain|_2 {dfeat:.4e} "
+          f"(tol {CLS_FEAT_TOL}); logits {gk.tolist()} vs {gp.tolist()} (max|diff| {diff:.4e}, "
+          f"tol {CLS_LOGIT_TOL}); loss {lk:.6f} vs {lp:.6f} (|diff| {dloss:.4e}, tol {CLS_LOSS_TOL})")
+    check(bool(torch.isfinite(fk).all()), "classifier: non-finite hidden state")
+    check(dfeat <= CLS_FEAT_TOL, f"classifier: the head's input differs from the plain path's by {dfeat}")
+    check(diff <= CLS_LOGIT_TOL, f"classifier: logits differ from the plain path's by {diff}")
+    check(dloss <= CLS_LOSS_TOL, f"classifier: loss differs from the plain path's by {dloss}")
+    del trainer, model, heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _timed(label, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[{label}] phase time {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def main(argv=None) -> int:
     if not (ROOT / "magma_tpu_torch").is_dir():
         return fail("run from a checkout of the repository: magma_tpu_torch/ is missing")
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--only", default=None,
+                        help="run only these of phases 10,11,12 after the build (a partial "
+                             "run: it prints neither the kernels' line nor the ok line)")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2770,6 +3252,14 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
+    later = {"10": ("towers", phase_towers), "11": ("cli", phase_cli),
+             "12": ("classifier", phase_classifier)}
+    if args.only is not None:
+        for phase in args.only.split(","):
+            _timed(later[phase][0], later[phase][1], torch)
+        print(f"partial run (phases {args.only}) done in {time.perf_counter() - t_start:.1f} s "
+              f"on {smi}")
+        return 0
     k1 = phase_kernel(torch)
     int8_entries = phase_int8_kernels(torch)
     int4_entries = phase_int4_kernels(torch)
@@ -2808,13 +3298,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["train A"] = phase_training(torch, "A")
     paths["train B"] = phase_training(torch, "B")
+    for label, fn in later.values():
+        paths[label] = _timed(label, fn, torch)
 
     launches = {k: sum(p[k] for p in paths.values()) for k in _all_wrappers()}
     launches["flash_attention_kernel"] += bf16_launches
     for wrapper, n in launches.items():
         check(n > 0, f"no path launched {wrapper}")
     k1["launches"] = launches["flash_attention_kernel"]
-    k1["wgmma_launches"] = paths["train A"]["k1_wgmma"] + paths["train B"]["k1_wgmma"]
+    k1["wgmma_launches"] = sum(paths[p]["k1_wgmma"] for p in ("train A", "train B", "cli",
+                                                             "classifier"))
     entries = {**int8_entries, **int4_entries, **decode_entries, **train_entries}
     kernels = [k1] + [dict(entries[w], launches=launches[w])
                       for w in (*INT8_KERNELS, *INT4_KERNELS, *DECODE_KERNELS, *TRAIN_KERNELS)]

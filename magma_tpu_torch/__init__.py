@@ -12,7 +12,12 @@ kernels too; continuous batching over size-classed KV cache pools
 (``LMServingEngine``, ``MagmaServingEngine``); and adapter training
 (``magma_tpu_torch.training.train_loop.Trainer``), bf16 or over the int8
 QLoRA layout, with the flash-attention backward and the int8 input
-gradient as CUDA kernels.
+gradient as CUDA kernels, fed from images on disk by the dataset, the
+threaded loader and the CLI (``python -m magma_tpu_torch.train --config
+...``), with evaluation (eval loss, captions, VQA) and classification
+fine-tuning (``MagmaClassifier``).  Every image tower of the JAX package
+is ported: the CLIP ResNets, the CLIP ViT-B/32 (the default) and
+NF-ResNet50.
 """
 
 from magma_tpu_torch.config import MultimodalConfig, load_config
@@ -23,6 +28,7 @@ __version__ = "0.1.0"
 
 _LAZY = {
     "Magma": ("magma_tpu_torch.models.magma", "Magma"),
+    "MagmaClassifier": ("magma_tpu_torch.models.classifier", "MagmaClassifier"),
     "ImageInput": ("magma_tpu_torch.data.image_input", "ImageInput"),
     "get_transforms": ("magma_tpu_torch.data.transforms", "get_transforms"),
     "LMServingEngine": ("magma_tpu_torch.serving", "LMServingEngine"),
@@ -40,5 +46,5 @@ def __getattr__(name):
     raise AttributeError(f"module 'magma_tpu_torch' has no attribute {name!r}")
 
 
-__all__ = ["MultimodalConfig", "load_config", "get_tokenizer", "Magma", "ImageInput",
-           "get_transforms", "LMServingEngine", "MagmaServingEngine", "is_main"]
+__all__ = ["MultimodalConfig", "load_config", "get_tokenizer", "Magma", "MagmaClassifier",
+           "ImageInput", "get_transforms", "LMServingEngine", "MagmaServingEngine", "is_main"]

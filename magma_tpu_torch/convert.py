@@ -13,7 +13,15 @@ checkpoint's names (``mp_rank_00_model_states.pt``, ``sd["module"]``):
     lm.transformer.h.{i}.attn.adapter.{j}...         (attention adapter)
     lm.transformer.h.{i}.attn.adapter_scale          (scaled_parallel)
     lm.transformer.ln_f.{weight,bias}
-    image_prefix.proj / image_prefix.ln / image_prefix.enc.<CLIP visual names>
+    image_prefix.proj / image_prefix.ln / image_prefix.enc.<tower names>
+
+The tower's names: the CLIP ResNets' as the checkpoint has them, the CLIP
+ViT-B/32's as OpenAI's ``VisionTransformer`` (``conv1``,
+``class_embedding``, ``transformer.resblocks.{i}.attn.in_proj_weight``
+[q; k; v], ...), NF-ResNet50's as timm's ``NormFreeNet`` (``stem.conv``,
+``stages.{s}.{b}.conv{1,2,3}`` with their ``gain``, ``downsample.conv``).
+``convert_encoder_state_dict`` and ``load_pretrained_encoder`` take a
+tower's checkpoint alone.
 
 Conversions: Linear (out, in) -> kernel (in, out); per-layer tensors
 stacked on a leading layer axis; ``wte`` zero-padded to the padded vocab;
@@ -25,6 +33,7 @@ arrays; the layouts are the same except the conv kernels (HWIO -> OIHW).
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -117,7 +126,7 @@ def _lm_from_state_dict(sd: Dict, lm_cfg, device=None,
 
 
 def _clip_resnet_from_state_dict(sd: Dict, enc_cfg, device=None,
-                                 prefix: str = "image_prefix.enc.") -> Tuple[Dict, Dict]:
+                                 prefix: str = "") -> Tuple[Dict, Dict]:
     def t(name):
         return _tensor(sd[prefix + name], torch.float32, device)
 
@@ -149,13 +158,113 @@ def _clip_resnet_from_state_dict(sd: Dict, enc_cfg, device=None,
     return params, stats
 
 
+def _clip_vit_from_state_dict(sd: Dict, enc_cfg, device=None, prefix: str = "") -> Dict:
+    """OpenAI CLIP ``VisionTransformer`` names -> the clip_vit tree
+    (``torch_convert.py:292``): the fused in_proj rows [q; k; v] transposed
+    into columns [q | k | v]; ``proj`` (W, embed_dim) stored as it is."""
+    def t(name, transpose=False):
+        x = torch.as_tensor(sd[prefix + name])
+        return _tensor(x.T if transpose else x, device=device)
+
+    def stack(fmt, transpose=False):
+        return torch.stack([t(fmt.format(i=i), transpose) for i in range(enc_cfg.layers)])
+
+    def ln(name):
+        return {"scale": t(name + ".weight"), "bias": t(name + ".bias")}
+
+    rb = "transformer.resblocks.{i}."
+    return {
+        "patch_embed": t("conv1.weight"),
+        "class_token": t("class_embedding"),
+        "pos_embed": t("positional_embedding"),
+        "ln_pre": ln("ln_pre"),
+        "blocks": {
+            "ln_1": {"scale": stack(rb + "ln_1.weight"), "bias": stack(rb + "ln_1.bias")},
+            "attn": {
+                "qkv": {"kernel": stack(rb + "attn.in_proj_weight", True),
+                        "bias": stack(rb + "attn.in_proj_bias")},
+                "out": {"kernel": stack(rb + "attn.out_proj.weight", True),
+                        "bias": stack(rb + "attn.out_proj.bias")},
+            },
+            "ln_2": {"scale": stack(rb + "ln_2.weight"), "bias": stack(rb + "ln_2.bias")},
+            "mlp": {
+                "fc": {"kernel": stack(rb + "mlp.c_fc.weight", True),
+                       "bias": stack(rb + "mlp.c_fc.bias")},
+                "proj": {"kernel": stack(rb + "mlp.c_proj.weight", True),
+                         "bias": stack(rb + "mlp.c_proj.bias")},
+            },
+        },
+        "ln_post": ln("ln_post"),
+        "proj": t("proj"),
+    }
+
+
+def _nf_resnet_from_state_dict(sd: Dict, enc_cfg, device=None, prefix: str = "") -> Dict:
+    """timm ``NormFreeNet`` names -> the nfnet tree (``torch_convert.py:365``).
+    timm builds nf_resnet50 without skipinit, so a missing
+    ``skipinit_gain`` imports as 1.0 (the residual ``shortcut + 0.2 * gain *
+    f(x)`` is then timm's ``shortcut + 0.2 * f(x)``)."""
+    def ws(base):
+        return {"kernel": _tensor(sd[base + ".weight"], device=device),
+                "gain": _tensor(sd[base + ".gain"], device=device).reshape(-1),
+                "bias": _tensor(sd[base + ".bias"], device=device)}
+
+    params: Dict = {"stem": ws(prefix + "stem.conv")}
+    for stage, n_blocks in enumerate(enc_cfg.blocks, start=1):
+        blocks = []
+        for b in range(n_blocks):
+            base = f"{prefix}stages.{stage - 1}.{b}."
+            gain = sd.get(base + "skipinit_gain", 1.0)
+            bp = {"conv1": ws(base + "conv1"), "conv2": ws(base + "conv2"),
+                  "conv3": ws(base + "conv3"),
+                  "skipinit_gain": _tensor(gain, device=device).reshape(())}
+            if base + "downsample.conv.weight" in sd:
+                bp["down"] = ws(base + "downsample.conv")
+            blocks.append(bp)
+        params[f"layer{stage}"] = blocks
+    return params
+
+
+def convert_encoder_state_dict(sd: Dict, prefix_cfg, prefix: str = "",
+                               device=None) -> Tuple[Dict, Dict]:
+    """A tower's torch state dict -> (params, batch stats) of the port
+    (``torch_convert.py:444``): the CLIP ResNets (checkpoint names), the
+    CLIP ViT-B/32 ("clip", OpenAI names: ``prefix="visual."`` for a whole
+    CLIP model's file) and timm's nf_resnet50.  The ViT and the NF-ResNet
+    keep no statistics: theirs is {} (the JAX package returns None)."""
+    name = prefix_cfg.encoder_name
+    _, enc_cfg, _ = prefix_cfg.encoder
+    if name.startswith("clip_resnet") or name == "clip_rn50":
+        return _clip_resnet_from_state_dict(sd, enc_cfg, device, prefix)
+    if name == "clip":
+        return _clip_vit_from_state_dict(sd, enc_cfg, device, prefix), {}
+    if name == "nfresnet50":
+        return _nf_resnet_from_state_dict(sd, enc_cfg, device, prefix), {}
+    raise ValueError(f"image encoder {name} not recognized")
+
+
+def load_pretrained_encoder(model, path_or_sd, prefix: str = "auto") -> None:
+    """Put a published tower's weights (an OpenAI CLIP model file, a timm
+    nf_resnet50 checkpoint) into ``model.params["image_prefix"]["enc"]``
+    and its statistics into ``model.state`` (``torch_convert.py:466``), on
+    the model's device.  ``prefix="auto"`` detects CLIP's ``visual.``
+    nesting; a ``state_dict`` entry is unwrapped."""
+    if isinstance(path_or_sd, (str, Path)):
+        sd = torch.load(str(path_or_sd), map_location="cpu", weights_only=False)
+        if "state_dict" in sd:
+            sd = sd["state_dict"]
+    else:
+        sd = path_or_sd
+    if prefix == "auto":
+        prefix = "visual." if any(k.startswith("visual.") for k in sd) else ""
+    enc, stats = convert_encoder_state_dict(sd, model.prefix_config, prefix, model.device)
+    model.params["image_prefix"]["enc"] = enc
+    model.state["image_prefix"]["enc"] = stats
+
+
 def convert_state_dict(sd: Dict, lm_cfg, prefix_cfg, device=None) -> Tuple[Dict, Dict]:
     """Reference-named state dict (torch tensors or numpy arrays) ->
     (params, state) of the port, on ``device``."""
-    name = prefix_cfg.encoder_name
-    if not (name.startswith("clip_resnet") or name == "clip_rn50"):
-        raise NotImplementedError(f"state-dict import for encoder {name!r} is not ported yet")
-    _, enc_cfg, _ = prefix_cfg.encoder
     ip: Dict = {"proj": {
         "kernel": _tensor(torch.as_tensor(sd["image_prefix.proj.weight"]).T, device=device),
         "bias": _tensor(sd["image_prefix.proj.bias"], device=device),
@@ -163,7 +272,8 @@ def convert_state_dict(sd: Dict, lm_cfg, prefix_cfg, device=None) -> Tuple[Dict,
     if "image_prefix.ln.weight" in sd:
         ip["ln"] = {"scale": _tensor(sd["image_prefix.ln.weight"], device=device),
                     "bias": _tensor(sd["image_prefix.ln.bias"], device=device)}
-    ip["enc"], enc_stats = _clip_resnet_from_state_dict(sd, enc_cfg, device)
+    ip["enc"], enc_stats = convert_encoder_state_dict(sd, prefix_cfg, "image_prefix.enc.",
+                                                      device)
     params = {"lm": _lm_from_state_dict(sd, lm_cfg, device), "image_prefix": ip}
     return params, {"image_prefix": {"enc": enc_stats}}
 
@@ -204,9 +314,14 @@ def from_jax_params(params_np: Dict, state_np: Optional[Dict], lm_cfg, prefix_cf
     them in: int8 weights and int4 packs, fp32 scales, biases and ``bvecs``
     (and every {"q", "s"} pack, such as the QLoRA layout's o); the
     int4 layout's "dsb"/"dsb2" are dropped, so the tree has the leaves of
-    the port's own ``quantize_lm_params_int4``.  The image prefix and BN
-    stats stay fp32; conv kernels go HWIO -> OIHW."""
-    del prefix_cfg  # same tree for every ported encoder
+    the port's own ``quantize_lm_params_int4``.  Any other top-level
+    subtree (a ``MagmaClassifier``'s ``class_head``) comes as fp32.  The
+    image prefix and BN
+    stats stay fp32; conv kernels (every 4-D leaf of the three towers: the
+    CLIP ResNets' convs, the ViT's patch embedding, the NF-ResNet's WS
+    kernels) go HWIO -> OIHW, every other leaf keeps its shape (the
+    NF-ResNet's 0-d ``skipinit_gain`` too)."""
+    del prefix_cfg  # the same rule for every tower's tree
 
     def in_pack(path):  # a leaf of an int8 {"q", "s"} pack
         node = params_np["lm"]
@@ -224,8 +339,8 @@ def from_jax_params(params_np: Dict, state_np: Optional[Dict], lm_cfg, prefix_cf
     def prefix_leaf(path, a):
         a = np.asarray(a, np.float32)
         if a.ndim == 4:  # conv kernel
-            a = a.transpose(3, 2, 0, 1)
-        return _tensor(np.ascontiguousarray(a), device=device)
+            a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+        return _tensor(a, device=device)
 
     def drop_tpu_only(tree):
         if not isinstance(tree, dict):
@@ -236,6 +351,8 @@ def from_jax_params(params_np: Dict, state_np: Optional[Dict], lm_cfg, prefix_cf
         "lm": _walk(drop_tpu_only(params_np["lm"]), lm_leaf),
         "image_prefix": _walk(params_np["image_prefix"], prefix_leaf),
     }
+    for key in params_np.keys() - params.keys():  # a classifier's class_head
+        params[key] = _walk(params_np[key], lambda _, a: _tensor(a, device=device))
     state = _walk(state_np or {"image_prefix": {"enc": {}}},
                   lambda _, a: _tensor(a, device=device))
     return params, state

@@ -1,12 +1,17 @@
 """ImagePrefix: image batch -> sequence of LM-dimension embeddings.
 
-Port of the spatial-encoder path of ``magma_tpu/models/image_prefix.py``
-(reference magma/image_prefix.py:24-109): a CLIP ResNet emits
-(b, tokens, enc_dim); one linear projects enc_dim -> lm_dim; dropout
-(identity at inference; in training the JAX package's keep / rescale
-rule with bits from a ``torch.Generator``) and an optional fp32 LayerNorm
-follow.  The pooled towers ("clip" ViT, "nfresnet50") are not ported yet
-and raise.
+Port of ``magma_tpu/models/image_prefix.py`` (reference
+magma/image_prefix.py:24-109, the encoder factory
+magma/image_encoders.py:79-91):
+
+* a spatial tower (the CLIP ResNets) emits (b, tokens, enc_dim); one
+  linear projects enc_dim -> lm_dim;
+* a pooled tower (the CLIP ViT-B/32 "clip", "nfresnet50") emits
+  (b, enc_dim); the linear projects to lm_dim * image_seq_len and the
+  result is reshaped to (b, image_seq_len, lm_dim);
+* dropout (identity at inference; in training the JAX package's keep /
+  rescale rule with bits from a ``torch.Generator``) and an optional fp32
+  LayerNorm follow, in that order.
 """
 
 from __future__ import annotations
@@ -16,26 +21,32 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from magma_tpu_torch.models import clip_resnet
+from magma_tpu_torch.models import clip_resnet, clip_vit, nfnet
 from magma_tpu_torch.utils import to_dtype
 
-_CLIP_RESNETS = ("clip_resnet", "clip_resnet_large", "clip_rn50")
-_NOT_PORTED = ("clip", "nfresnet50")
+# name -> (module, its config class, pooled?)
+_ENCODERS = {
+    "clip": (clip_vit, clip_vit.ClipViTConfig, True),
+    "clip_resnet": (clip_resnet, clip_resnet.ClipResNetConfig, False),
+    "clip_resnet_large": (clip_resnet, clip_resnet.ClipResNetConfig, False),
+    "clip_rn50": (clip_resnet, clip_resnet.ClipResNetConfig, False),
+    "nfresnet50": (nfnet, nfnet.NFResNetConfig, True),
+}
 
 
 def get_encoder(name: str, overrides: Optional[dict] = None):
     """Encoder registry.  Returns (module, config, pooled)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"image encoder {name!r} is not ported yet")
-    if name not in _CLIP_RESNETS:
+    if name not in _ENCODERS:
         raise ValueError(f"image encoder {name} not recognized")
-    return clip_resnet, clip_resnet.ClipResNetConfig.named(name, **dict(overrides or {})), False
+    module, config_cls, pooled = _ENCODERS[name]
+    return module, config_cls.named(name, **dict(overrides or {})), pooled
 
 
 @dataclasses.dataclass(frozen=True)
 class ImagePrefixConfig:
     encoder_name: str = "clip_resnet_large"
     out_dim: int = 4096            # LM hidden size
+    image_seq_len: int = 2         # pooled towers only
     dropout_prob: float = 0.0
     use_layernorm: bool = False
     encoder_overrides: Optional[tuple] = None  # tuple(sorted(dict.items()))
@@ -48,7 +59,8 @@ class ImagePrefixConfig:
 
     @property
     def out_seq_len(self) -> int:
-        return self.encoder[1].out_tokens
+        _, enc_cfg, pooled = self.encoder
+        return self.image_seq_len if pooled else enc_cfg.out_tokens
 
     @property
     def input_resolution(self) -> int:
@@ -58,15 +70,16 @@ class ImagePrefixConfig:
 def init_params(generator: torch.Generator, cfg: ImagePrefixConfig,
                 device=None) -> Tuple[Dict, Dict]:
     """Returns (params, batch_stats), fp32."""
-    module, enc_cfg, _ = cfg.encoder
+    module, enc_cfg, pooled = cfg.encoder
     enc_params, enc_stats = module.init_params(generator, enc_cfg, device)
     enc_dim = enc_cfg.out_dim
+    proj_out = cfg.out_dim * cfg.image_seq_len if pooled else cfg.out_dim
     params = {
         "enc": enc_params,
         "proj": {
-            "kernel": torch.randn((enc_dim, cfg.out_dim), generator=generator,
+            "kernel": torch.randn((enc_dim, proj_out), generator=generator,
                                   device=device).mul_(enc_dim ** -0.5),
-            "bias": torch.zeros(cfg.out_dim, device=device),
+            "bias": torch.zeros(proj_out, device=device),
         },
     }
     if cfg.use_layernorm:
@@ -76,13 +89,14 @@ def init_params(generator: torch.Generator, cfg: ImagePrefixConfig,
 
 
 def fold_for_serving(params: Dict, stats: Dict, cfg: ImagePrefixConfig) -> Dict:
-    """Serving transform (``image_prefix.py:105-121``): fold the tower's
-    inference BN into its convs (``clip_resnet.fold_bn``) and store the
-    projection in bf16.  Returns a new params tree; ``apply`` takes it as
-    it is (the stats pass through).  Idempotent."""
+    """Serving transform (``image_prefix.py:105-121``): fold a CLIP
+    ResNet's inference BN into its convs (``clip_resnet.fold_bn``; the
+    pooled towers have no BN) and store the projection in bf16.  Returns a
+    new params tree; ``apply`` takes it as it is (the stats pass through).
+    Idempotent."""
     module, enc_cfg, _ = cfg.encoder
     out = dict(params)
-    if not module.is_folded(params["enc"]):
+    if module is clip_resnet and not clip_resnet.is_folded(params["enc"]):
         out["enc"] = module.fold_bn(params["enc"], stats["enc"], enc_cfg)
     out["proj"] = {k: v.to(torch.bfloat16) for k, v in params["proj"].items()}
     return out
@@ -96,10 +110,12 @@ def apply(params: Dict, stats: Dict, images: torch.Tensor, cfg: ImagePrefixConfi
     BN and, with ``dropout_prob`` > 0, dropout: an element is kept with
     probability 1 - p and scaled by 1 / (1 - p) (``image_prefix.py:148-151``),
     the bits drawn from ``generator`` (JAX's bits cannot be reproduced)."""
-    module, enc_cfg, _ = cfg.encoder
+    module, enc_cfg, pooled = cfg.encoder
     cdt = to_dtype(cfg.compute_dtype)
     feats, enc_stats = module.apply(params["enc"], stats["enc"], images, enc_cfg, train=train)
     x = feats.to(cdt) @ params["proj"]["kernel"].to(cdt) + params["proj"]["bias"].to(cdt)
+    if pooled:
+        x = x.reshape(x.shape[0], cfg.image_seq_len, cfg.out_dim)
     if train and cfg.dropout_prob > 0.0:
         if generator is None:
             raise ValueError("dropout in training needs a generator")

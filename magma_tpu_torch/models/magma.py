@@ -61,6 +61,7 @@ def build_prefix_config(config: MultimodalConfig,
     return ip_mod.ImagePrefixConfig(
         encoder_name=config.encoder_name,
         out_dim=lm_cfg.d_model,
+        image_seq_len=config.image_seq_len,
         dropout_prob=config.image_embed_dropout_prob,
         use_layernorm=config.use_image_embed_layernorm,
         encoder_overrides=tuple(sorted(overrides.items())) or None,

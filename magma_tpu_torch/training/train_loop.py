@@ -14,11 +14,17 @@ Port of the single-device part of ``magma_tpu/training/train_loop.py``
   one micro-batch to the next;
 * ``run_blind`` zeroes the images (train_loop.py:13-14); ``eval_step``
   averages the loss under ``torch.no_grad``; ``inference_step`` captions
-  eval images; ``save``/``load`` keep the JAX checkpoint layout.
+  eval images; ``save``/``load`` keep the JAX checkpoint layout;
+* ``train_step_classification`` / ``eval_step_classification`` run a
+  ``MagmaClassifier``'s loss (train_loop.py:262-340) through the same
+  accumulation, clipping and AdamW (a flat batch split into ga
+  micro-batches; the mean of equal micro-batches' mean gradients is the
+  whole batch's, which JAX takes in one pass).
 
-Dropout bits come from a ``torch.Generator`` seeded by (seed, step); the
-JAX package's ``jax.random`` bits cannot be reproduced.  The device mesh,
-sharding and the classification steps are not ported.
+Host batches (the loader's pinned tensors) are copied to the card with
+``non_blocking=True``.  Dropout bits come from a ``torch.Generator`` seeded
+by (seed, step); the JAX package's ``jax.random`` bits cannot be
+reproduced.  The device mesh and sharding are not ported.
 """
 
 from __future__ import annotations
@@ -60,33 +66,39 @@ class Trainer:
         self.model.params = self.params
         self.model.state = self.state
 
+    def _to_device(self, x) -> torch.Tensor:
+        """A host array or tensor on the trainer's device; a pinned host
+        tensor is copied asynchronously."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x))
+        return x.to(self.device, non_blocking=True)
+
     def _batch(self, images, captions):
-        images = torch.as_tensor(np.asarray(images) if not isinstance(images, torch.Tensor)
-                                 else images, device=self.device).float()
-        captions = torch.as_tensor(np.asarray(captions) if not isinstance(captions, torch.Tensor)
-                                   else captions, device=self.device).long()
+        images = self._to_device(images).float()
+        captions = self._to_device(captions).long()
         if self.config.run_blind:
             images = torch.zeros_like(images)
         return images, captions
 
-    def train_step(self, images, captions, sync: bool = True):
-        """One optimizer step over a global batch laid out as (ga,
-        micro_batch, ...) (a flat (B, ...) batch is split into ga
-        micro-batches).  Returns the mean loss: a float, or with
-        ``sync=False`` a device scalar, so the host does not wait."""
-        ga = self.config.gradient_accumulation_steps
-        images, captions = self._batch(images, captions)
-        if images.dim() == 4:
-            images = images.reshape(ga, -1, *images.shape[1:])
-            captions = captions.reshape(ga, -1, captions.shape[-1])
+    def _generator(self) -> torch.Generator:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.seed * 1_000_003 + self.global_step)
+        return gen
+
+    def _accumulate_and_step(self, n: int, micro_loss):
+        """One optimizer step over ``n`` micro-batches: ``micro_loss(i,
+        state, generator)`` -> (loss, new state, aux) of micro-batch i.  The
+        gradients accumulate in fp32 when n > 1 and are averaged and cast to
+        the params' dtypes; the BN state threads through.  Returns (mean
+        loss as a device scalar, [aux of each micro-batch])."""
+        gen = self._generator()
         tensors = [t for _, t in self.trainable]
-        state, n = self.state, images.shape[0]
+        state = self.state
         acc = loss_sum = None
+        auxes = []
         for i in range(n):
-            loss, (state, _) = self.model.loss_fn(self.params, state, images[i], captions[i],
-                                                  train=True, generator=gen)
+            loss, state, aux = micro_loss(i, state, gen)
+            auxes.append(aux)
             grads = torch.autograd.grad(loss, tensors, allow_unused=True,
                                         materialize_grads=True)
             if n == 1:  # no fp32 accumulators: the grads are in the params' dtypes
@@ -104,7 +116,26 @@ class Trainer:
         self.optimizer.step(acc)
         self.state = tree_map(lambda t: t.detach(), state)
         self.global_step += 1
-        return float(loss_sum) if sync else loss_sum
+        return loss_sum, auxes
+
+    def train_step(self, images, captions, sync: bool = True):
+        """One optimizer step over a global batch laid out as (ga,
+        micro_batch, ...) (a flat (B, ...) batch is split into ga
+        micro-batches).  Returns the mean loss: a float, or with
+        ``sync=False`` a device scalar, so the host does not wait."""
+        ga = self.config.gradient_accumulation_steps
+        images, captions = self._batch(images, captions)
+        if images.dim() == 4:
+            images = images.reshape(ga, -1, *images.shape[1:])
+            captions = captions.reshape(ga, -1, captions.shape[-1])
+
+        def micro(i, state, gen):
+            loss, (state, _) = self.model.loss_fn(self.params, state, images[i], captions[i],
+                                                  train=True, generator=gen)
+            return loss, state, None
+
+        loss, _ = self._accumulate_and_step(images.shape[0], micro)
+        return float(loss) if sync else loss
 
     @torch.no_grad()
     def eval_step(self, eval_loader, eval_steps: Optional[int] = None) -> float:
@@ -129,6 +160,45 @@ class Trainer:
         embeddings = self.model.embed([torch.as_tensor(images, device=self.device)])
         captions = self.model.generate(embeddings, **generate_kwargs)
         return images, "".join(f"Caption {i}: \n{c}\n" for i, c in enumerate(captions))
+
+    # ------------------------------------------------------------------
+    # Classification fine-tuning (a MagmaClassifier's loss)
+    # ------------------------------------------------------------------
+    def _classification_batch(self, images, captions, class_labels):
+        images = ([self._to_device(i).float() for i in images]
+                  if isinstance(images, (list, tuple)) else [self._to_device(images).float()])
+        return images, self._to_device(captions).long(), self._to_device(class_labels).long()
+
+    def train_step_classification(self, images, captions, class_labels,
+                                  return_accuracy: bool = True):
+        """One optimizer step of the classification loss over a flat batch
+        (``images`` one (B, 3, H, W) batch or a list, one per image
+        position), split into ga micro-batches.  Returns the mean loss (and
+        the batch's accuracy) as floats."""
+        ga = self.config.gradient_accumulation_steps
+        images, captions, labels = self._classification_batch(images, captions, class_labels)
+        split = lambda t: t.reshape(ga, -1, *t.shape[1:])  # noqa: E731
+        images, captions, labels = [split(i) for i in images], split(captions), split(labels)
+
+        def micro(i, state, gen):
+            loss, (state, logits) = self.model.classification_loss_fn(
+                self.params, state, [img[i] for img in images], captions[i], labels[i],
+                train=True, generator=gen)
+            return loss, state, logits.detach()
+
+        loss, logits = self._accumulate_and_step(ga, micro)
+        acc = (torch.cat(logits).argmax(-1) == labels.reshape(-1)).float().mean()
+        return (float(loss), float(acc)) if return_accuracy else float(loss)
+
+    @torch.no_grad()
+    def eval_step_classification(self, images, captions, class_labels,
+                                 return_accuracy: bool = True):
+        """The classification loss (and accuracy) of one batch, train=False."""
+        images, captions, labels = self._classification_batch(images, captions, class_labels)
+        loss, (_, logits) = self.model.classification_loss_fn(
+            self.params, self.state, images, captions, labels, train=False)
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return (float(loss), float(acc)) if return_accuracy else float(loss)
 
     # ------------------------------------------------------------------
     def save(self, save_dir: str) -> None:

@@ -1,25 +1,68 @@
-"""Small shared utilities: the part of ``magma_tpu/utils.py`` the caption
-and training paths use, without jax, and the parameter-tree walks that
-the JAX package gets from ``jax.tree_util``."""
+"""Small shared utilities: the port of ``magma_tpu/utils.py`` over
+``torch.distributed`` (each helper answers for one process when it is not
+initialised), and the parameter-tree walks that the JAX package gets from
+``jax.tree_util``."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Tuple
+import os
+from typing import Any, Callable, Iterable, Iterator, Tuple
 
 import torch
 
 
 def is_main() -> bool:
     """True on rank 0 (or when torch.distributed is not initialised)."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_rank() == 0
-    return True
+    return not _distributed() or torch.distributed.get_rank() == 0
 
 
 def print_main(*msg: Any) -> None:
     """Rank-0-gated print.  Parity: magma/utils.py:21-23."""
     if is_main():
         print(*msg)
+
+
+def _distributed() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
+def cycle(loader: Iterable) -> Iterator:
+    """Infinite iterator over a re-iterable loader.  Parity: utils.py:37-40."""
+    while True:
+        for data in loader:
+            yield data
+
+
+def get_world_info() -> Tuple[int, int, int]:
+    """(local_rank, rank, world_size) from ``torch.distributed``; (0, 0, 1)
+    when it is not initialised.  Parity: magma/utils.py:255-259."""
+    if not _distributed():
+        return 0, 0, 1
+    rank = torch.distributed.get_rank()
+    return int(os.environ.get("LOCAL_RANK", rank)), rank, torch.distributed.get_world_size()
+
+
+def init_distributed() -> Tuple[int, int, int]:
+    """Multi-process initialisation (magma/utils.py:262-269).  Not ported:
+    a multi-process run is ROADMAP queue 1 item 5 (parallelism)."""
+    raise NotImplementedError(
+        "multi-process training is not ported yet (ROADMAP queue 1 item 5, parallelism); "
+        "run one process")
+
+
+def reduce_mean_across_hosts(x: torch.Tensor) -> torch.Tensor:
+    """Mean of a scalar tensor over the processes (magma/utils.py:26-34);
+    ``x`` itself in one process."""
+    if not _distributed() or torch.distributed.get_world_size() == 1:
+        return x
+    x = x.clone()
+    torch.distributed.all_reduce(x)
+    return x / torch.distributed.get_world_size()
+
+
+def tree_size_bytes(params) -> int:
+    """Bytes held by the tensors of a parameter tree."""
+    return sum(t.numel() * t.element_size() for _, t in tree_items(params))
 
 
 def round_up(x: int, m: int) -> int:

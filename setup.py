@@ -10,7 +10,8 @@ setup(
     packages=find_packages(include=["magma_tpu", "magma_tpu.*",
                                     "magma_tpu_torch", "magma_tpu_torch.*"]),
     package_data={"magma_tpu.native": ["loader.cc"],
-                  "magma_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "magma_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "magma_tpu_torch.native": ["loader.cc"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

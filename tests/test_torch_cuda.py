@@ -1570,3 +1570,122 @@ def test_engine_dispatch_waits_for_nothing(fmt, dev, monkeypatch):
     for r in ids:
         assert 1 <= len(res[r].tokens) <= 6 and res[r].finish_reason in ("eos", "length")
         assert all(0 <= t < cfg.vocab_size for t in res[r].tokens)
+
+
+# ---------------------------------------------------------------------------
+# The pooled towers, the loader's pinned batches and the train CLI on the card
+# ---------------------------------------------------------------------------
+
+# a tower's prefix in fp32 on the card (TF32 off) against the same weights
+# in fp32 on the CPU: another summation order, compounded over the blocks;
+# each element within 1e-4 of the CPU prefix's largest magnitude
+TOWER_REL_TOL = 1e-4
+
+
+def _tree_to(tree, dev):
+    from magma_tpu_torch.utils import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+@pytest.mark.parametrize("name,ov", [
+    ("clip", {}),  # the ViT-B/32 at its published widths
+    ("nfresnet50", dict(width=16, blocks=(1, 2, 1, 1), input_resolution=96)),
+    ("clip_resnet_large", dict(width=16, blocks=(1, 1, 1, 1), input_resolution=64)),
+], ids=["vit_b32", "nfresnet", "clip_resnet"])
+def test_tower_prefix_on_the_card_matches_the_cpu(name, ov, dev):
+    from magma_tpu_torch.models import image_prefix as ip_mod
+
+    allow = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = ip_mod.ImagePrefixConfig(
+            encoder_name=name, out_dim=256, use_layernorm=True, dropout_prob=0.1,
+            encoder_overrides=tuple(sorted(dict(ov, compute_dtype=torch.float32).items())),
+            compute_dtype=torch.float32)
+        params, stats = ip_mod.init_params(torch.Generator().manual_seed(0), cfg)
+        res = cfg.input_resolution
+        images = torch.randn((2, 3, res, res), generator=torch.Generator().manual_seed(1))
+        ref, _ = ip_mod.apply(params, stats, images, cfg)
+        out, _ = ip_mod.apply(_tree_to(params, dev), _tree_to(stats, dev), images.to(dev), cfg)
+        assert out.shape == ref.shape == (2, cfg.out_seq_len, 256)
+        err = (out.cpu() - ref).abs().max() / ref.abs().max()
+        assert err <= TOWER_REL_TOL, err
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = allow
+
+
+def test_loader_pins_batches_and_the_trainer_copies_them_async(dev):
+    """BatchLoader(device="cuda") yields pinned host tensors; the Trainer's
+    copy of them to the card is non-blocking and gives the same values."""
+    from magma_tpu_torch.data.loader import BatchLoader
+    from magma_tpu_torch.training.train_loop import Trainer
+
+    class DS:
+        def __len__(self):
+            return 12
+
+        def __getitem__(self, i):
+            return np.full((1, 3, 4, 4), i, np.float32), np.full((1, 8), i, np.int32)
+
+    loader = BatchLoader(DS(), batch_size=4, gradient_accumulation_steps=2, seq_len=8,
+                         num_workers=2, device=dev)
+    try:
+        images, captions = next(loader)
+    finally:
+        loader.close()
+    assert images.is_pinned() and captions.is_pinned() and images.shape == (2, 2, 3, 4, 4)
+    trainer = Trainer.__new__(Trainer)
+    trainer.device, trainer.config = dev, type("C", (), {"run_blind": False})()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gi, gc = trainer._batch(images, captions)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert gi.is_cuda and gc.dtype == torch.long
+    assert torch.equal(gi.cpu(), images) and torch.equal(gc.cpu(), captions.long())
+
+
+def test_train_cli_two_steps_on_the_card(dev, tmp_path):
+    """``magma_tpu_torch.train.main`` at a tiny width on the card: 2 steps
+    from JPEGs on disk (K1 and K9 on a 128-wide head), eval, captions, VQA,
+    a save, all logged."""
+    import json
+
+    from PIL import Image
+
+    from magma_tpu_torch import train
+
+    rng = np.random.default_rng(0)
+    for sub, n in (("train", 8), ("vqa", 2)):
+        (tmp_path / sub / "images" / "0").mkdir(parents=True)
+        (tmp_path / sub / "image_data" / "0").mkdir(parents=True)
+        for i in range(n):
+            Image.fromarray(rng.integers(0, 256, (40 + 8 * i, 64, 3), dtype=np.uint8)).save(
+                tmp_path / sub / "images" / "0" / f"{i}.jpg")
+            rec = {"image_path": f"images/0/{i}.jpg", "captions": [f"picture {i}"],
+                   "metadata": {"question": "what is it?", "answers": ["thing"]}}
+            (tmp_path / sub / "image_data" / "0" / f"{i}.json").write_text(json.dumps(rec))
+    yml = tmp_path / "tiny.yml"
+    yml.write_text(f"""{{
+ encoder_name: 'clip_resnet_large', batch_size: 4, gradient_accumulation_steps: 2,
+ train_steps: 2, log_every: 1, eval_every: 2, eval_steps: 1, save_every: 2,
+ save: '{tmp_path}/ckpt', load: null, train_dataset_dir: '{tmp_path}/train',
+ eval_dataset_dir: null, eval_dataset_pct: 0.25, vqa_dir: '{tmp_path}/vqa', image_size: 64,
+ num_workers: 2, warmup_num_steps: 1,
+ adapter_config: {{"mlp": {{"adapter_type": "normal", "downsample_factor": 4}}}},
+ use_image_embed_layernorm: true, image_embed_dropout_prob: 0.1,
+ lm_overrides: {{n_layers: 2, n_heads: 1, d_model: 128, d_ff: 512, rotary_dim: 16,
+                 max_seq_len: 64}},
+ encoder_overrides: {{width: 16, blocks: [1, 1, 1, 1], input_resolution: 64}},
+}}""")
+    before = flash_attention_kernel.launches
+    trainer = train.main(["--config", str(yml)])
+    assert trainer.global_step == 2 and trainer.device.type == "cuda"
+    assert flash_attention_kernel.launches > before
+    log = [json.loads(x) for x in (tmp_path / "ckpt" / "metrics.jsonl").read_text().splitlines()]
+    losses = [m["train/loss"] for m in log if "train/loss" in m]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert any("eval/loss" in m for m in log) and any("eval/vqa_accuracy" in m for m in log)
+    assert (tmp_path / "ckpt" / "latest").read_text() == "step_2"

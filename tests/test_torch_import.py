@@ -23,6 +23,12 @@ def test_imports_with_jax_blocked():
         "import magma_tpu_torch.ops.decode_layer\n"
         "import magma_tpu_torch.training\n"
         "import magma_tpu_torch.training.train_loop, magma_tpu_torch.training.checkpoint\n"
+        "import magma_tpu_torch.models.clip_vit, magma_tpu_torch.models.nfnet\n"
+        "import magma_tpu_torch.models.classifier, magma_tpu_torch.train\n"
+        "import magma_tpu_torch.data.dataset, magma_tpu_torch.data.convert\n"
+        "import magma_tpu_torch.data.loader, magma_tpu_torch.data.transforms\n"
+        "import magma_tpu_torch.native, magma_tpu_torch.evaluation\n"
+        "import magma_tpu_torch.observability\n"
         "assert not [m for m in sys.modules if m == 'magma_tpu' or m.startswith('magma_tpu.')]\n"
         "print('ok')\n"
     )

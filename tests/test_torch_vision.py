@@ -107,6 +107,9 @@ def test_image_prefix_apply_matches_jax():
 
 
 def test_unported_towers_raise():
-    for name in ("clip", "nfresnet50"):
-        with pytest.raises(NotImplementedError):
-            tip.ImagePrefixConfig(encoder_name=name).encoder
+    """Every tower JAX's registry names is ported (the pooled ones too);
+    a name outside it raises, as in JAX."""
+    for name in jip._ENCODERS:
+        assert tip.ImagePrefixConfig(encoder_name=name).encoder[2] == jip._ENCODERS[name][2]
+    with pytest.raises(ValueError):
+        tip.ImagePrefixConfig(encoder_name="vit_h14").encoder
