@@ -171,8 +171,30 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    two images a sample and one ``eval_step_classification``, with exact
    launches (K1 all on its wgmma body), then one micro-batch's logits and
    loss through the kernels against the plain path.
-Each of phases 10-12 prints its time; ``--only 10,11,12`` runs just those
-after the build (a partial run, without the last two lines).
+13. Parallelism over ``torch.distributed`` (``magma_tpu_torch/parallel``),
+   at full width, each path in worker processes (``torch.multiprocessing``,
+   a free port on 127.0.0.1; a rank's failure ends the run): first the
+   one-process references in this process, then which collectives two
+   ranks on the one card carry (NCCL, then gloo on CUDA tensors, each
+   checked), then (a) tp, phase 5's three requests through
+   ``Magma.generate`` over the tensor-parallel int8 layout, each rank
+   building only its shards layer by layer from the seed; (b) sp, greedy
+   generate over the eight-image prompt with the cache's positions
+   sharded; (c) dp, two path A steps (v1's bf16 tower, no dropout), each
+   rank fed its share of the global batch; at two ranks on gloo where it
+   carries their collectives; (d) a path A step with ring attention at
+   world 1 on NCCL (``init_distributed``) where two ranks do not carry
+   send/recv (so no collective of the ring runs there).  Exact launches on
+   every rank; (a) and (b) hold their teacher-forced logits within phase
+   5's int8 tolerance of one process's and every greedy choice equal where
+   the logits do not tie; (c) the losses, the first step's global gradient
+   (phase 9's tolerance) and the updated trainables (98% of each group's
+   elements within 0.05 lr) against one process computing the ranks'
+   arithmetic (``_loss_in_shares``), with the distance of that arithmetic
+   from the whole batch's printed beside; (d) its loss and gradients
+   against the flash path; the ranks' replicas equal.
+Each of phases 10-13 prints its time; ``--only 10,11,12,13`` runs just
+those after the build (a partial run, without the last two lines).
 
 No b = 1 serving prefill of phases 3-7 may run K1's wgmma body: on it
 phase 6b's int8-cache agreement fails; phase 5c's b = 8 whole-prompt
@@ -1394,18 +1416,19 @@ def _leaves(tree):
         yield tree
 
 
-def _prefill_last_logits(torch, cfg, lm_params, emb):
-    """fp32 logits at the last true position of a padded prefill."""
+def _prefill_last_logits(torch, cfg, lm_params, emb, mesh=None):
+    """fp32 logits at the last true position of a padded prefill (over
+    ``mesh``: this rank's shards, the logits gathered)."""
     from magma_tpu_torch.models import gptj
 
     pad = (-emb.shape[1]) % 64
     padded = torch.nn.functional.pad(emb, (0, 0, 0, pad))
     s = emb.shape[1]
     kv_len = torch.full((1,), s, dtype=torch.int32, device=emb.device)
-    cache = gptj.init_kv_cache(cfg, 1, padded.shape[1] + 64, device=emb.device)
+    cache = gptj.init_kv_cache(cfg, 1, padded.shape[1] + 64, device=emb.device, mesh=mesh)
     hidden, _ = gptj.forward(cfg, lm_params, padded, cache=cache, cache_index=0,
-                             kv_len=kv_len, return_hidden=True)
-    return gptj.lm_head(cfg, lm_params, hidden[:, s - 1:s])[0, 0]
+                             kv_len=kv_len, return_hidden=True, mesh=mesh)
+    return gptj.lm_head(cfg, lm_params, hidden[:, s - 1:s], mesh)[0, 0]
 
 
 def _profile_forward(torch, fn, tag, what):
@@ -1940,13 +1963,13 @@ class _EngineProbe:
             return self.saved["_install_slot"](*a, **k)
 
         def window(name, piggy):
-            def fn(*a, n_steps, eos_token):
+            def fn(*a, n_steps, eos_token, **k):
                 B = a[3].shape[0]
                 if self.on_window is not None:
                     self.on_window(B, a[:8], n_steps)
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
-                out = self.saved[name](*a, n_steps=n_steps, eos_token=eos_token)
+                out = self.saved[name](*a, n_steps=n_steps, eos_token=eos_token, **k)
                 end.record()
                 self.windows.append((B, n_steps, start, end, piggy))
                 return out
@@ -2735,7 +2758,7 @@ def phase_training(torch, path):
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     for step in range(TRAIN_STEPS):
-        batch = _train_batch(torch, cfg, seq, 100 + step)
+        batch = [_rank_share(torch, trainer, t) for t in _train_batch(torch, cfg, seq, 100 + step)]
         for fn in wrappers.values():
             fn.launches = 0  # count this step only
         k1.wgmma_launches = 0
@@ -3226,6 +3249,757 @@ def phase_classifier(torch):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: parallelism over torch.distributed, on the one card
+# ---------------------------------------------------------------------------
+
+# a spawn's ranks are killed after this many seconds (the probes' sooner)
+PAR_DEADLINE_S, PAR_PROBE_S = 600, 60
+PAR_OPS = ("all_reduce_sum", "all_reduce_max", "broadcast", "all_gather", "send_recv")
+# the collectives each path calls: it runs at two ranks where gloo carries
+# them on CUDA tensors, else at world 1 on NCCL, through the same code
+PAR_NEEDS = {"tp": {"all_reduce_sum", "broadcast", "all_gather"},
+             "sp": {"all_reduce_sum", "all_reduce_max", "broadcast"},
+             "dp": {"all_reduce_sum"},
+             "ring": {"send_recv"}}
+# tp 2 against one process over the same int8 layout: the row-parallel
+# partial sums add in fp32 in another order before their one bf16 rounding,
+# and K2b's K/2 tiles accumulate in another order: far inside phase 5's
+# int8 tolerance, which is held
+PAR_LOGIT_TOL = INT8_LOGIT_TOL
+PAR_TRAIN_STEPS = 2
+# dp against one process doing the ranks' arithmetic (``_loss_in_shares``):
+# the losses, the first step's gradient at phase 9's TRAIN_GRAD_TOL, and
+# the updated trainables in the CPU test's form: in each group this many of
+# the elements within PAR_UPDATE_LR of the learning rate of one process's
+PAR_UPDATE_LR, PAR_UPDATE_SHARE = 0.05, 0.98
+
+
+def _seeded(torch, seed, key, shape, dev):
+    """N(0, 0.02) bf16 of ``shape`` from a generator of its own, seeded by
+    (seed, key): any rank draws any piece of the tree without drawing the
+    rest."""
+    import zlib
+
+    g = torch.Generator(device=dev).manual_seed(zlib.crc32(f"{seed}/{key}".encode()))
+    return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16).mul_(0.02)
+
+
+def _tp_model(torch, mesh, seed=0):
+    """MAGMA v1 at full width in the tensor-parallel int8 serving layout
+    (``quantize_lm_params(fuse_in_proj=False)``'s), built one layer at a
+    time: each projection of each layer drawn from its own seeded generator
+    (``_seeded``), quantized whole, and only this rank's shard kept, so no
+    rank holds the bf16 tree.  ``mesh`` None: the whole tree (the one-process
+    reference, the same weights).  The vision tower BN-folded, as serving
+    takes it."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.models import image_prefix as ip_mod
+    from magma_tpu_torch.models.adapters import init_adapter
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.ops.quant import quantize_int8
+    from magma_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda")
+    model = Magma(CONFIG, device=dev, init_weights=False)
+    cfg = model.lm_config
+    L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    tp = 1 if mesh is None else mesh.size("tp")
+
+    def shard(path, t):
+        if mesh is None:
+            return t
+        return sharding.shard_tensor(t, sharding.lm_param_spec(f"lm/{path}", t.dim()), mesh)
+
+    shapes = {"attn/q": (D, D), "attn/k": (D, D), "attn/v": (D, D), "attn/o": (D, D),
+              "mlp/fc_in/kernel": (D, F_), "mlp/fc_out/kernel": (F_, D)}
+    parts = {}
+    for layer in range(L):
+        for path, shape in shapes.items():
+            pack = quantize_int8(_seeded(torch, seed, f"{path}/{layer}", shape, dev), compiled=True)
+            for k, t in pack.items():
+                parts.setdefault((path, k), []).append(shard(f"blocks/{path}/{k}", t[None]))
+            del pack
+    blocks = {"attn": {}, "mlp": {"fc_in": {}, "fc_out": {}}}
+    for (path, k), ts in parts.items():
+        node = blocks
+        for key in path.split("/")[:-1]:
+            node = node[key]
+        node.setdefault(path.split("/")[-1], {})[k] = torch.cat(ts)
+    del parts
+    wte = _seeded(torch, seed, "wte", (cfg.padded_vocab_size, D), dev)
+    wte[V:] = 0
+    head = quantize_int8(wte.float().T, compiled=True)
+    top = {"wte": wte, "lm_head_q": head}
+    if mesh is not None:
+        top = sharding.shard_lm_params(mesh, top)
+    del wte, head
+    zeros = lambda *s: torch.zeros(s, device=dev, dtype=cfg.param_dtype)  # noqa: E731
+    ones = lambda *s: torch.ones(s, device=dev, dtype=cfg.param_dtype)  # noqa: E731
+    blocks["ln_1"] = {"scale": ones(L, D), "bias": zeros(L, D)}
+    blocks["attn"]["o_bias"] = zeros(L, D)
+    blocks["mlp"]["fc_in"]["bias"] = zeros(L, F_ // tp)
+    blocks["mlp"]["fc_out"]["bias"] = zeros(L, D)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    blocks["adapter_mlp"] = init_adapter(g, cfg.mlp_adapter, D, L, cfg.adapter_param_dtype, dev)
+    lm = {**top, "blocks": blocks, "ln_f": {"scale": ones(D), "bias": zeros(D)}}
+    ip_params, ip_stats = ip_mod.init_params(g, model.prefix_config, dev)
+    model.params = {"lm": gptj._serving_cast_adapters(lm, mode="bf16"),
+                    "image_prefix": ip_params}
+    model.state = {"image_prefix": ip_stats}
+    model._fold_vision()
+    return model
+
+
+def _par_want(L, steps):
+    """Exact launches of one request of ``steps`` tokens over the
+    tensor-parallel int8 layout on every rank: K1 once a layer in the
+    prefill, K2b for each of the six projections a layer in every forward,
+    K2a once a forward (the padded head shard); no fused decode."""
+    want = {"flash_attention_kernel": L, "int8_matmul_stacked_kernel": 6 * L * steps,
+            "int8_matmul_kernel": steps}
+    return {k: want.get(k, 0) for k in _all_wrappers()}
+
+
+def _long_prompt(torch, model):
+    """Phase 5c's eight-image prompt (1,216 positions), one row."""
+    imgs = [model.preprocess_inputs([_image(200 + j)]) for j in range(LONG_IMAGES)]
+    return torch.cat(imgs + [model.preprocess_inputs([PROMPT])], dim=1)
+
+
+def _forced_logits(torch, cfg, lm, emb, tokens, mesh=None):
+    """fp32 logits of a cached prefill over ``emb`` (at its last position),
+    then of one decode step for each of ``tokens`` but the last, fed those
+    tokens (teacher-forced): (len(tokens), padded vocab) on the CPU.  Over
+    ``mesh``: this rank's shards and cache."""
+    from magma_tpu_torch.models import gptj
+
+    s, n = emb.shape[1], len(tokens)
+    cache = gptj.init_kv_cache(cfg, 1, -(-(s + n) // 64) * 64, device=emb.device, mesh=mesh)
+    hidden, cache = gptj.forward(cfg, lm, emb, cache=cache, cache_index=0, return_hidden=True,
+                                 mesh=mesh)
+    out = [gptj.lm_head(cfg, lm, hidden[:, -1:], mesh)[0, 0]]
+    toks = torch.as_tensor(np.asarray(tokens), device=emb.device).reshape(1, -1)
+    for i in range(n - 1):
+        emb_t = gptj.embed_tokens(cfg, lm, toks[:, i:i + 1], mesh)
+        logits, cache = gptj.forward(cfg, lm, emb_t, cache=cache, cache_index=s + i, mesh=mesh)
+        out.append(logits[0, -1])
+    return torch.stack(out).cpu()
+
+
+def _greedy_agreement(torch, tag, got, ref, vocab, tol):
+    """Teacher-forced logits of a parallel path against one process's on
+    the same tokens: the largest distance (within ``tol``), and the greedy
+    choice equal wherever one process's top two logits lie further apart
+    than twice the two paths' distance there (a closer pair is a tie the
+    rounding of a sum decides).  Returns the largest distance."""
+    got, ref = got[:, :vocab], ref[:, :vocab]
+    d = (got - ref).abs().amax(-1)
+    top2 = ref.topk(2, -1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * d
+    same = got.argmax(-1) == ref.argmax(-1)
+    first = int((~decided).nonzero()[0]) if (~decided).any() else None
+    print(f"[{tag}] teacher-forced logits over {len(d)} positions against one process: max|diff| "
+          f"{d.max().item():.4e} (prefill {d[0].item():.4e}; tol {tol}), greedy choice equal "
+          f"at {int(same.sum())} of {len(d)}, decided at {int(decided.sum())} (first near-tie: "
+          f"position {first}), every decided one equal: {bool(same[decided].all())}")
+    check(d.max().item() <= tol, f"{tag}: logits {d.max().item()} from one process's")
+    check(bool(same[decided].all()), f"{tag}: a greedy choice differs where the logits do not tie")
+    return d.max().item()
+
+
+def _print_prefix(tag, got, ref):
+    got, ref = np.asarray(got).reshape(-1), np.asarray(ref).reshape(-1)
+    n = len(got) if (got == ref).all() else int(np.argmax(got != ref))
+    print(f"[{tag}] free-running greedy tokens equal one process's for {n} of {len(ref)}")
+
+
+def _par_reference_serving(torch, work):
+    """One process over the same tensor-parallel int8 layout: the greedy
+    request's and the eight-image prompt's greedy tokens, and their
+    teacher-forced logits."""
+    from magma_tpu_torch.ops.sampling import generate_tokens
+
+    t0 = time.perf_counter()
+    model = _tp_model(torch, None)
+    cfg, lm = model.lm_config, model.params["lm"]
+    emb = model.preprocess_inputs([_image(), PROMPT])
+    timing = {}
+    tokens = model.generate(emb, max_steps=MAX_STEPS, temperature=0.0, decode=False,
+                            timing=timing)
+    long = _long_prompt(torch, model)
+    long_t = {}
+    long_tokens, _ = generate_tokens(cfg, lm, long, max_steps=MAX_STEPS, temperature=0.0,
+                                     top_k=0, top_p=0.0, eos_token=model.eos_token,
+                                     timing=long_t)
+    steps = timing["steps"]
+    print(f"[parallel] one-process reference (tensor-parallel int8 layout, built layer by "
+          f"layer from the seed in {time.perf_counter() - t0:.1f} s): greedy {steps} tokens, "
+          f"decode {timing['decode_ms'] / max(steps - 1, 1):.2f} ms/token; eight-image prompt "
+          f"{tuple(long.shape)}: decode {long_t['decode_ms'] / MAX_STEPS:.2f} ms/step")
+    torch.save({"tokens": tokens, "forced": _forced_logits(torch, cfg, lm, emb, tokens[0]),
+                "long_tokens": long_tokens.cpu(),
+                "long_forced": _forced_logits(torch, cfg, lm, long, long_tokens[0].cpu())},
+               work / "ref_serving.pt")
+    del model
+
+
+def _par_train_config():
+    """Path A (v1: the bf16 RN50x16 trainable, batch statistics) without
+    ImagePrefix dropout: a rank draws its mask over its share, one process
+    over the batch, so the bits cannot agree."""
+    cfg = _train_config("A")
+    cfg.image_embed_dropout_prob = 0.0
+    return cfg
+
+
+def _par_reference_training(torch, work, shares):
+    """One process taking path A's global batches as ``shares`` ranks of dp
+    compute them (``_loss_in_shares``): losses, the first step's gradient
+    and each parameter group's update after PAR_TRAIN_STEPS steps.  First,
+    one micro-batch's gradient the usual way and the ranks' way, whose
+    distance is the batch shapes' alone (``scripts/torch_dp_witness.py``:
+    the randomly initialised tower amplifies a change of a rounding's size
+    in its input or statistics to one of order 1 in bf16)."""
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.training.train_loop import Trainer
+
+    cfg = _par_train_config()
+    model = Magma(cfg, seed=0, device=torch.device("cuda"))
+    trainer = Trainer(model, cfg)
+    images, captions = _train_batch(torch, cfg, model.seq_len, 100)
+    micro = cfg.batch_size // cfg.gradient_accumulation_steps
+    _, g_one = _group_grads(torch, trainer, images[:micro], captions[:micro], 7)
+    model.loss_fn = functools.partial(_loss_in_shares, torch, model, shares)
+    _, g_ranks = _group_grads(torch, trainer, images[:micro], captions[:micro], 7)
+    shapes = {k: ((g_ranks[k] - g).norm() / g.norm()).item() for k, g in g_one.items()}
+    grads = _record_first_grads(torch, trainer)
+    before = _par_groups(torch, trainer.trainable, trainer)
+    losses = [trainer.train_step(*_train_batch(torch, cfg, model.seq_len, 100 + i))
+              for i in range(PAR_TRAIN_STEPS)]
+    after = _par_groups(torch, trainer.trainable, trainer)
+    print(f"[parallel] one-process reference, path A in {shares} shares: losses {losses}; one "
+          f"micro-batch's gradient in shares vs whole |g - g1| / |g1| by group "
+          f"{ {k: f'{v:.2e}' for k, v in shapes.items()} } (the batch shapes alone, not held)")
+    torch.save({"losses": losses, "grads": {k: v.bfloat16().cpu() for k, v in grads.items()},
+                "delta": {k: (after[k] - v).bfloat16().cpu() for k, v in before.items()}},
+               work / "ref_training.pt")
+    del trainer, model, before, after, grads, g_one, g_ranks
+
+
+def _prefix_in_shares(torch, model, params, state, images, shares, *, train=True,
+                      generator=None):
+    """``image_prefix.apply`` as ``shares`` ranks of dp compute it between
+    them, in one process: each equal contiguous share of the batch
+    (``sharding.shard_batch``) runs the rank's own code in a thread of its
+    own, the tower's dp BatchNorm included; where the ranks' all_reduce
+    joins them (``mesh.sum_both``) the threads meet, and each takes the sum
+    of the shares' terms through a node whose gradient each share receives
+    whole, as the all_reduce of the ranks' gradients gives it (two terms
+    add to the same bits in either order).  Returns (embeddings, new
+    state)."""
+    import threading
+
+    from magma_tpu_torch.models import image_prefix as ip_mod
+    from magma_tpu_torch.parallel import mesh as mesh_mod
+
+    class ShareSum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *parts):
+            return functools.reduce(torch.add, parts)
+
+        @staticmethod
+        def backward(ctx, g):
+            return (g,) * shares
+
+    class Shares:  # what the tower asks of its mesh
+        def size(self, axes):
+            return shares
+
+    barrier, slots, local = threading.Barrier(shares), [None] * shares, threading.local()
+
+    def sum_both(x, mesh, axes):
+        slots[local.i] = x
+        barrier.wait()
+        parts = list(slots)
+        barrier.wait()  # every share has read the slots before they are reused
+        return ShareSum.apply(*parts)
+
+    out, errors = [None] * shares, []
+
+    def run(i, img):
+        local.i = i
+        try:
+            out[i] = ip_mod.apply(params["image_prefix"], state["image_prefix"], img,
+                                  model.prefix_config, train=train, generator=generator,
+                                  mesh=Shares())
+        except BaseException as e:  # noqa: BLE001  (raised below, after the join)
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(i, img))
+               for i, img in enumerate(images.chunk(shares))]
+    saved, mesh_mod.sum_both = mesh_mod.sum_both, sum_both
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        mesh_mod.sum_both = saved
+    if errors:
+        raise errors[0]
+    return torch.cat([o[0] for o in out]), {"image_prefix": out[0][1]}
+
+
+def _lm_loss(torch, model, params, state, e, captions, shares=1):
+    """The LM's loss on the image prefix's output ``e``, one call a share of
+    the batch (as ranks of dp holding a share each run it), the shares' mean
+    losses weighted by their part of the valid positions (so the sum is the
+    batch's mean)."""
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.training.labels import IGNORE, build_labels
+
+    def loss(e, captions):  # the class's loss_fn: an instance may have patched its own
+        return Magma.loss_fn(model, params, state, None, captions, input_embeddings=e)[0]
+
+    if shares == 1:
+        return loss(e, captions)
+    valid = (build_labels(e.shape[1], captions, model.eos_token)[:, 1:] != IGNORE).sum(1)
+    part = [v.sum() / valid.sum() for v in valid.chunk(shares)]
+    return sum(loss(q, c) * w for q, c, w in zip(e.chunk(shares), captions.chunk(shares), part))
+
+
+def _loss_in_shares(torch, model, shares, params, state, images, captions, *, train=True,
+                    generator=None):
+    """``Magma.loss_fn`` (no dropout) as ``shares`` ranks of dp compute it
+    between them, in one process: ``_prefix_in_shares``, then the LM a share
+    a call (``_lm_loss``)."""
+    emb, new_state = _prefix_in_shares(torch, model, params, state, images, shares, train=train,
+                                       generator=generator)
+    return _lm_loss(torch, model, params, state, emb, captions, shares), (new_state, None)
+
+
+def _par_groups(torch, named, trainer):
+    """Flat fp32 tensors by parameter group of ``named`` ((path, tensor) in
+    the trainer's order)."""
+    from magma_tpu_torch.training.optim import label_params
+    from magma_tpu_torch.utils import tree_items
+
+    labels = dict(tree_items(label_params(trainer.params)))
+    groups = {}
+    for path, t in named:
+        groups.setdefault(labels[path], []).append(t.detach().float().reshape(-1))
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def _record_first_grads(torch, trainer):
+    """The gradients the trainer's first step hands AdamW (at dp > 1 the
+    global mean over the ranks), by group: filled in by that step."""
+    store, step = {}, trainer.optimizer.step
+
+    def spy(grads):
+        if not store:
+            store.update(_par_groups(torch, [(p, g) for (p, _), g in
+                                             zip(trainer.trainable, grads)], trainer))
+        return step(grads)
+
+    trainer.optimizer.step = spy
+    return store
+
+
+def _par_launches(wrappers):
+    return {k: fn.launches for k, fn in wrappers.items()}
+
+
+def _par_tp(torch, world, work):
+    """(a) Phase 5's three requests through ``Magma.generate`` over a tp =
+    world mesh, each rank holding its shards: exact launches; then the
+    greedy request's teacher-forced logits against one process's."""
+    from magma_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, world)
+    t0 = time.perf_counter()
+    model = _tp_model(torch, mesh)
+    model.mesh = mesh
+    cfg, L = model.lm_config, model.lm_config.n_layers
+    tag = f"parallel tp {world} rank {mesh.rank}"
+    print(f"[{tag}] shards built in {time.perf_counter() - t0:.1f} s: q "
+          f"{tuple(model.params['lm']['blocks']['attn']['q']['q'].shape)}, head "
+          f"{tuple(model.params['lm']['lm_head_q']['q'].shape)}, "
+          f"{nbytes(*_leaves(model.params['lm'])) / 1e9:.2f} GB of LM a rank")
+    wrappers = _all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0  # count this path only
+    greedy = None
+    for i, (name, kw) in enumerate(_requests()):
+        before = _par_launches(wrappers)
+        emb, tokens, steps = _run_request(torch, model, i, name, kw, tag)
+        got = {k: v - before[k] for k, v in _par_launches(wrappers).items()}
+        check(got == _par_want(L, steps), f"{tag} request {i}: launches {got}, expected "
+              f"{_par_want(L, steps)}")
+        greedy = greedy or (emb, tokens)
+    launches = _par_launches(wrappers)  # the checks below are not the path's
+    ref = torch.load(work / "ref_serving.pt", weights_only=False)
+    _print_prefix(tag, greedy[1], ref["tokens"])
+    forced = _forced_logits(torch, cfg, model.params["lm"], greedy[0], ref["tokens"][0], mesh)
+    diff = _greedy_agreement(torch, tag, forced, ref["forced"], cfg.vocab_size, PAR_LOGIT_TOL)
+    del model
+    return {"launches": launches, "logit_diff": diff}
+
+
+def _par_sp(torch, world, work):
+    """(b) Greedy generate over the eight-image prompt with the cache's
+    positions sharded over sp = world (``attention_impl="ring"``): exact
+    launches; then its teacher-forced decode logits against the unsharded
+    cache's in one process."""
+    from magma_tpu_torch.ops.sampling import generate_tokens
+    from magma_tpu_torch.parallel.mesh import mesh_from_layout
+
+    mesh = mesh_from_layout(np.arange(world).reshape(1, 1, world), ("dp", "tp", "sp"))
+    model = _tp_model(torch, None)
+    cfg = dataclasses.replace(model.lm_config, attention_impl="ring")
+    L = cfg.n_layers
+    long = _long_prompt(torch, model)
+    tag = f"parallel sp {world} rank {mesh.rank}"
+    wrappers = _all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0  # count this path only
+    timing = {}
+    tokens, steps = generate_tokens(cfg, model.params["lm"], long, max_steps=MAX_STEPS,
+                                    temperature=0.0, top_k=0, top_p=0.0,
+                                    eos_token=model.eos_token, timing=timing, mesh=mesh)
+    got = _par_launches(wrappers)
+    print(f"[{tag}] {tuple(long.shape)} prompt, cache positions a rank "
+          f"{-(-(long.shape[1] + MAX_STEPS) // 64) * 64 // world}: {steps} steps, prefill "
+          f"{timing['prefill_ms']:.1f} ms, decode {timing['decode_ms'] / steps:.2f} ms/step; "
+          f"launches {got}")
+    check(got == _par_want(L, steps), f"{tag}: launches {got}, expected {_par_want(L, steps)}")
+    ref = torch.load(work / "ref_serving.pt", weights_only=False)
+    _print_prefix(tag, tokens.cpu(), ref["long_tokens"])
+    forced = _forced_logits(torch, cfg, model.params["lm"], long, ref["long_tokens"][0], mesh)
+    diff = _greedy_agreement(torch, tag, forced, ref["long_forced"], cfg.vocab_size,
+                             PAR_LOGIT_TOL)
+    del model
+    return {"launches": got, "decode_ms": timing["decode_ms"] / steps, "logit_diff": diff}
+
+
+def _rank_share(torch, trainer, t):
+    """This rank's "dp" share of each micro-batch of a global batch (B,
+    ...), flat (B / dp, ...): what the multi-process loader hands a rank."""
+    from magma_tpu_torch.parallel.sharding import shard_batch
+
+    ga = trainer.config.gradient_accumulation_steps
+    t = shard_batch(t.reshape(ga, -1, *t.shape[1:]), trainer.mesh, 1)
+    return t.reshape(-1, *t.shape[2:])
+
+
+def _par_dp(torch, world, work):
+    """(c) Path A at dp = world, each rank given its share of the global
+    batch: exact launches; the losses, the first step's gradient (the
+    global mean the ranks sum) and the updated parameters against one
+    process computing the ranks' arithmetic; the replicas equal."""
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.parallel.mesh import make_mesh
+    from magma_tpu_torch.training.train_loop import Trainer
+
+    mesh = make_mesh(world, 1)
+    cfg = _par_train_config()
+    model = Magma(cfg, seed=0, device=torch.device("cuda"))
+    trainer = Trainer(model, cfg, mesh=mesh)
+    L, seq, ga = model.lm_config.n_layers, model.seq_len, cfg.gradient_accumulation_steps
+    tag = f"parallel dp {world} rank {mesh.rank}"
+    want = _want_train_launches("A", L, -(-(seq - 1) // 256), ga)
+    grads = _record_first_grads(torch, trainer)
+    before = _par_groups(torch, trainer.trainable, trainer)
+    wrappers = _all_wrappers()
+    totals = dict.fromkeys(wrappers, 0)
+    losses, times = [], []
+    for step in range(PAR_TRAIN_STEPS):
+        batch = [_rank_share(torch, trainer, t) for t in _train_batch(torch, cfg, seq, 100 + step)]
+        for fn in wrappers.values():
+            fn.launches = 0  # count this step only
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(*batch))
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = _par_launches(wrappers)
+        check(got == want, f"{tag} step {step + 1}: launches {got}, expected {want}")
+        for k in wrappers:
+            totals[k] += got[k]
+    ref = torch.load(work / "ref_training.pt", weights_only=False)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    # both rounded to bf16, as the reference keeps them
+    g_rel = {k: ((grads[k].bfloat16().cpu().float() - g.float()).norm() / g.float().norm()).item()
+             for k, g in ref["grads"].items()}
+    after = _par_groups(torch, trainer.trainable, trainer)
+    # each group's share of elements whose update is within PAR_UPDATE_LR of
+    # its learning rate of one process's, and the largest distance in lr
+    err = {k: ((after[k] - before[k]).cpu() - d.float()).abs()
+           / (cfg.image_enc_lr if k.startswith("img_enc") else cfg.lr)
+           for k, d in ref["delta"].items()}
+    near = {k: (e <= PAR_UPDATE_LR).float().mean().item() for k, e in err.items()}
+    print(f"[{tag}] losses {losses} (one process in {world} shares {ref['losses']}, max rel "
+          f"{loss_rel:.2e}, tol {TRAIN_LOSS_TOL}); step 1's gradient vs one process "
+          f"|g - g1| / |g1| by group {({k: f'{v:.2e}' for k, v in g_rel.items()})} (tol "
+          f"{TRAIN_GRAD_TOL}); updated params within {PAR_UPDATE_LR} lr of one process's, "
+          f"share by group {({k: f'{v:.5f}' for k, v in near.items()})} (at least "
+          f"{PAR_UPDATE_SHARE}; the largest distance "
+          f"{({k: f'{e.max().item():.3f}' for k, e in err.items()})} lr); step wall "
+          f"{[f'{t:.1f}' for t in times]} ms (host clock, {world} ranks on one card)")
+    check(loss_rel <= TRAIN_LOSS_TOL, f"{tag}: losses {losses} vs {ref['losses']}")
+    check(all(v <= TRAIN_GRAD_TOL for v in g_rel.values()), f"{tag}: gradients differ: {g_rel}")
+    check(all(v >= PAR_UPDATE_SHARE for v in near.values()), f"{tag}: updates: {near}")
+    sums = _checksums(torch, [t for _, t in trainer.trainable])
+    del trainer, model, before, after, grads
+    return {"launches": totals, "checksums": sums, "step_ms": times}
+
+
+def _par_ring(torch, world, work):
+    """(d) One path A step with ``attention_impl="ring"`` over sp = world:
+    exact launches (K1 through the ring's steps, K9a and K9b in its
+    backward), then one micro-batch's loss and gradients against the flash
+    path on the same parameters."""
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.parallel.mesh import mesh_from_layout
+    from magma_tpu_torch.training.train_loop import Trainer
+
+    mesh = mesh_from_layout(np.arange(world).reshape(1, 1, world), ("dp", "tp", "sp"))
+    cfg = _train_config("A")
+    cfg.attention_impl = "ring"
+    model = Magma(cfg, seed=0, device=torch.device("cuda"))
+    trainer = Trainer(model, cfg, mesh=mesh)
+    L, seq, ga = model.lm_config.n_layers, model.seq_len, cfg.gradient_accumulation_steps
+    tag = f"parallel ring sp {world} rank {mesh.rank}"
+    check(model.lm_config.attention_impl == "ring" and model.mesh is mesh, f"{tag}: no ring")
+    # the ring's steps: n forward, n - 1 of them past blocks; at sp n each rank
+    # launches K1 for its live blocks (all but the future ones)
+    live = mesh.axis_index("sp") + 1
+    want = {"flash_attention_kernel": 2 * L * live, "flash_attention_bwd_dkv_kernel": L * live,
+            "flash_attention_bwd_dq_kernel": L * live}
+    want = {k: ga * want.get(k, 0) for k in _all_wrappers()}
+    wrappers = _all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0  # count this path only
+    loss = trainer.train_step(*_train_batch(torch, cfg, seq, 100))
+    got = _par_launches(wrappers)
+    print(f"[{tag}] step loss {loss:.6f}, launches {got}")
+    check(np.isfinite(loss) and got == want, f"{tag}: launches {got}, expected {want}")
+    images, captions = _train_batch(torch, cfg, seq, 200)
+    micro = (images[:cfg.batch_size // ga], captions[:cfg.batch_size // ga])
+    ring_loss, ring_g = _group_grads(torch, trainer, *micro, 7)
+    model.lm_config = dataclasses.replace(model.lm_config, attention_impl="flash")
+    model.mesh = None
+    flash_loss, flash_g = _group_grads(torch, trainer, *micro, 7)
+    rel = {k: ((ring_g[k] - flash_g[k]).norm() / flash_g[k].norm()).item() for k in flash_g}
+    bits = all(torch.equal(ring_g[k], flash_g[k]) for k in flash_g)
+    loss_rel = abs(ring_loss - flash_loss) / abs(flash_loss)
+    print(f"[{tag}] one micro-batch, ring vs flash path: loss {ring_loss:.6f} vs "
+          f"{flash_loss:.6f} (rel {loss_rel:.2e}), gradients |g - g_flash| / |g_flash| "
+          f"{ {k: f'{v:.2e}' for k, v in rel.items()} }, bit-identical: {bits}")
+    if world == 1:
+        print(f"[{tag}] at world 1 the ring makes no send/recv, no dK/dV hop and no lse merge, "
+              f"so this agreement holds by construction: the merge on the card is held by "
+              f"tests/test_torch_cuda.py test_ring_step_merge_matches_flash, the rotation by "
+              f"the CPU tests at sp 2 and 4")
+    check(loss_rel <= TRAIN_LOSS_TOL and all(v <= TRAIN_GRAD_TOL for v in rel.values()),
+          f"{tag}: ring and flash paths disagree")
+    del trainer, model, ring_g, flash_g
+    return {"launches": got}
+
+
+PAR_PATHS = {"tp": _par_tp, "sp": _par_sp, "dp": _par_dp, "ring": _par_ring}
+
+
+def _par_probe(torch, world, work):
+    """Each collective of PAR_OPS on CUDA tensors of the one card, with its
+    result checked: "ok" or the error's first line."""
+    import torch.distributed as dist
+
+    rank, dev = dist.get_rank(), torch.device("cuda")
+    peer = (rank + 1) % world
+
+    def all_reduce(op, want):
+        t = torch.full((4,), float(rank + 1), device=dev)
+        dist.all_reduce(t, op=op)
+        return bool((t == want).all())
+
+    def broadcast():
+        t = torch.full((4,), float(rank + 1), device=dev)
+        dist.broadcast(t, src=0)
+        return bool((t == 1).all())
+
+    def all_gather():
+        out = torch.empty(4 * world, device=dev)
+        dist.all_gather_into_tensor(out, torch.full((4,), float(rank), device=dev))
+        return bool((out == torch.arange(world, device=dev).repeat_interleave(4)).all())
+
+    def send_recv():
+        t, r = torch.full((4,), float(rank), device=dev), torch.empty(4, device=dev)
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, t, peer),
+                                           dist.P2POp(dist.irecv, r, (rank - 1) % world)]):
+            req.wait()
+        return bool((r == (rank - 1) % world).all())
+
+    tests = {"all_reduce_sum": lambda: all_reduce(dist.ReduceOp.SUM, world * (world + 1) / 2),
+             "all_reduce_max": lambda: all_reduce(dist.ReduceOp.MAX, world),
+             "broadcast": broadcast, "all_gather": all_gather, "send_recv": send_recv}
+    out = {}
+    for name in PAR_OPS:
+        try:
+            ok = tests[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok" if ok else "wrong result"
+        except Exception as e:  # recorded: the probe's finding, not a failure
+            out[name] = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
+        # kept as it goes: a collective the backend lacks may end the process
+        torch.save(out, work / f"probe_{dist.get_backend()}.{rank}.pt")
+    return out
+
+
+def _par_worker(rank, world, port, backend, names, work):
+    """One rank: initialise torch.distributed (two ranks on the one card
+    share device 0; world 1 goes through ``utils.init_distributed``), run
+    the named paths, save each result for the parent."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(work)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK="0")
+    if world == 1 and backend == "nccl":
+        from magma_tpu_torch.utils import init_distributed
+
+        check(init_distributed("cuda") == (0, 0, 1), "init_distributed at world 1")
+    else:
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world)
+    check(dist.get_backend() == backend, f"backend {dist.get_backend()} != {backend}")
+    for name in names:
+        fn = _par_probe if name == "probe" else PAR_PATHS[name]
+        out = fn(torch, world, work)
+        torch.save(out, work / f"{name}.{rank}.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if backend == "nccl" and world > 1:
+        os._exit(0)  # the probe's failed NCCL world: no teardown to wait on
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _par_spawn(torch, world, backend, names, work, deadline):
+    """Run ``names`` in ``world`` spawned ranks; returns (per-rank results of
+    each name, None) or (None, why it ended).  Every rank is stopped by the
+    deadline; a rank's failure ends the others."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_par_worker, args=(world, _free_port(), backend, names, str(work)),
+                             nprocs=world, join=False, start_method="spawn")
+    error = None
+    try:
+        while not ctx.join(timeout=2):
+            if time.perf_counter() - t0 > deadline:
+                error = f"not done after {deadline} s"
+                break
+    except Exception as e:  # a rank raised or exited non-zero: the others are ended
+        error = f"{type(e).__name__}: {str(e).strip()[-1500:]}"
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    if error is not None:
+        return None, error
+    return {n: [torch.load(work / f"{n}.{r}.pt", weights_only=False) for r in range(world)] for n in names}, None
+
+
+def phase_parallel(torch):
+    """Phase 13: the parallel paths at full width on the one card.  The
+    one-process references first, then which collectives a world of two
+    ranks on the card carries (NCCL, then gloo on CUDA tensors), then each
+    path at the widest world that carries it: (a) tp, (b) sp, (c) dp at
+    two ranks where gloo carries their collectives, (d) the ring (send and
+    recv) at world 1 on NCCL otherwise.  Returns the launches of all
+    ranks, by wrapper."""
+    import tempfile
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        _par_reference_serving(torch, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        carried = {}
+        for backend in ("nccl", "gloo"):
+            t0 = time.perf_counter()
+            res, why = _par_spawn(torch, 2, backend, ["probe"], work, PAR_PROBE_S)
+            if res:
+                ranks = res["probe"]
+            else:  # what each rank recorded before its world ended
+                files = [work / f"probe_{backend}.{r}.pt" for r in range(2)]
+                ranks = [torch.load(f, weights_only=False) if f.exists() else {}
+                         for f in files]
+                ranks = [{op: r.get(op, f"the world ended during it: {why[:300]}")
+                          for op in PAR_OPS} for r in ranks]
+            print(f"[parallel] two ranks on one card, {backend} on CUDA tensors "
+                  f"({time.perf_counter() - t0:.1f} s):")
+            for op in PAR_OPS:
+                print(f"[parallel]   {op}: " + " | ".join(sorted({r[op] for r in ranks})))
+            # carried: the collective ran and gave the right result on every rank
+            carried[backend] = {op for op in PAR_OPS if all(r[op] == "ok" for r in ranks)}
+        backend2 = "nccl" if carried["nccl"] >= set(PAR_OPS) else "gloo"
+        at2 = [p for p in PAR_PATHS if PAR_NEEDS[p] <= carried[backend2]]
+        at1 = [p for p in PAR_PATHS if p not in at2]
+        for p in PAR_PATHS:
+            why = (f"{backend2} carries {sorted(PAR_NEEDS[p])} at two ranks" if p in at2 else
+                   f"two ranks on one card carry no {sorted(PAR_NEEDS[p] - carried[backend2])}"
+                   f"; world 1 on nccl, the same code")
+            print(f"[parallel] path {p}: world {2 if p in at2 else 1} "
+                  f"({backend2 if p in at2 else 'nccl'}): {why}")
+        _par_reference_training(torch, work, 2 if "dp" in at2 else 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        results = {}
+        for world, backend, names in ((2, backend2, at2), (1, "nccl", at1)):
+            if not names:
+                continue
+            t0 = time.perf_counter()
+            res, why = _par_spawn(torch, world, backend, names, work, PAR_DEADLINE_S)
+            check(res is not None, f"parallel paths {names} at world {world}: {why}")
+            print(f"[parallel] {names} at world {world} on {backend}: "
+                  f"{time.perf_counter() - t0:.1f} s with the ranks' start ({smi})")
+            results.update(res)
+    if "dp" in results:
+        sums = [r["checksums"] for r in results["dp"]]
+        print(f"[parallel] dp replicas' trainables bit-equal across ranks: "
+              f"{all(s == sums[0] for s in sums)}")
+        check(all(s == sums[0] for s in sums), "dp replicas differ")
+    launches = dict.fromkeys(_all_wrappers(), 0)
+    for name, ranks in results.items():
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] += v
+    print("[parallel] launches over all ranks and paths: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    return launches
+
+
 def _timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3240,7 +4014,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", default=None,
-                        help="run only these of phases 10,11,12 after the build (a partial "
+                        help="run only these of phases 10,11,12,13 after the build (a partial "
                              "run: it prints neither the kernels' line nor the ok line)")
     args = parser.parse_args(argv)
     import torch
@@ -3253,7 +4027,7 @@ def main(argv=None) -> int:
     smi = phase_device(torch)
     phase_build()
     later = {"10": ("towers", phase_towers), "11": ("cli", phase_cli),
-             "12": ("classifier", phase_classifier)}
+             "12": ("classifier", phase_classifier), "13": ("parallel", phase_parallel)}
     if args.only is not None:
         for phase in args.only.split(","):
             _timed(later[phase][0], later[phase][1], torch)

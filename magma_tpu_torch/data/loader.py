@@ -17,6 +17,9 @@ card is asynchronous (``Trainer._batch`` copies with
 ``non_blocking=True``).  With ``torch.distributed`` initialised each
 process takes its rank's stride of the global order, as the DeepSpeed
 sampler splits by rank; otherwise the one process takes all of it.
+``shard=(index, count)`` names the stride instead: the training CLI
+strides by the rank's "dp" coordinate, so the ranks of one tensor- or
+sequence-parallel group load the same samples.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +53,7 @@ class BatchLoader:
         prefetch: int = 2,
         flat: bool = False,
         device="cuda",
+        shard: Optional[Tuple[int, int]] = None,
     ):
         if batch_size % gradient_accumulation_steps:
             raise ValueError(f"batch_size {batch_size} is not a multiple of "
@@ -68,6 +72,7 @@ class BatchLoader:
         self.seed = seed
         self.shuffle = shuffle
         self.flat = flat
+        self.shard = shard
 
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -78,6 +83,8 @@ class BatchLoader:
         rng = np.random.RandomState(self.seed)
         n = len(self.dataset)
         _, rank, world = get_world_info()
+        if self.shard is not None:
+            rank, world = self.shard
         while True:
             order = rng.permutation(n) if self.shuffle else np.arange(n)
             for i in order[rank::world]:  # this process's stride of the global order

@@ -75,24 +75,30 @@ class MagmaClassifier(Magma):
                                generator: Optional[torch.Generator] = None):
         """(loss, (new_state, fp32 logits)); ``images`` is one (b, 3, H, W)
         batch or a list of them (one per image position).  The loss is the
-        mean cross-entropy of the logits."""
+        mean cross-entropy of the logits; over ``self.mesh`` (the Trainer's)
+        the batch is this rank's "dp" share and the loss its share of the
+        global mean, as ``loss_fn``'s.  Ring attention is not taken here."""
+        mesh = self.mesh
+        if mesh is not None and self.lm_config.attention_impl == "ring":
+            raise ValueError("the classifier runs the whole sequence on each rank: no ring")
         if not isinstance(images, (list, tuple)):
             images = [images]
         new_state = state
         prefix_embeds = []
         for img in images:
             emb, new_ip = ip_mod.apply(params["image_prefix"], new_state["image_prefix"], img,
-                                       self.prefix_config, train=train, generator=generator)
+                                       self.prefix_config, train=train, generator=generator,
+                                       mesh=mesh)
             prefix_embeds.append(emb)
             new_state = {"image_prefix": new_ip}
         prefix = torch.cat(prefix_embeds, dim=1)
 
         s_img = prefix.shape[1]
         captions = captions.long()
-        word = gptj.embed_tokens(self.lm_config, params["lm"], captions)
+        word = gptj.embed_tokens(self.lm_config, params["lm"], captions, mesh)
         embeds = torch.cat([prefix, word[:, :self.seq_len - s_img]], dim=1)
         x, _ = gptj.forward(self.lm_config, params["lm"], embeds,
-                            remat=self.lm_config.remat and train, return_hidden=True)
+                            remat=self.lm_config.remat and train, return_hidden=True, mesh=mesh)
         b, s, _ = x.shape
         if self.interface_type == "last_token":
             # captions are right-padded with EOS: the first EOS, else the end
@@ -105,7 +111,13 @@ class MagmaClassifier(Magma):
             feat = x.mean(dim=1)
         head = params["class_head"]
         logits = feat.float() @ head["kernel"].float() + head["bias"].float()
-        loss = F.cross_entropy(logits, class_labels.long())
+        if mesh is None:
+            loss = F.cross_entropy(logits, class_labels.long())
+        else:
+            from magma_tpu_torch.parallel.mesh import all_reduce
+
+            n = all_reduce(torch.tensor(float(b), device=logits.device), mesh, "dp")
+            loss = F.cross_entropy(logits, class_labels.long(), reduction="sum") / n
         return loss, (new_state, logits)
 
     @torch.no_grad()

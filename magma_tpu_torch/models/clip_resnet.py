@@ -218,16 +218,33 @@ def _apply_folded(params: Dict, images: torch.Tensor, cfg: ClipResNetConfig) -> 
 
 
 def _bn(x: torch.Tensor, p: Dict, s: Dict, cfg: ClipResNetConfig,
-        train: bool) -> Tuple[torch.Tensor, Dict]:
+        train: bool, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """BatchNorm over NCHW fp32.  Returns (y, new running stats): inference
     reads the running statistics and keeps them; training normalises by the
     batch mean and biased variance over (N, H, W) and moves the running
-    statistics by ``bn_momentum`` (their update carries no gradient)."""
+    statistics by ``bn_momentum`` (their update carries no gradient).
+    ``mesh`` with dp > 1: x is this rank's shard of the batch, and the mean
+    and variance are the whole batch's (sums over "dp", differentiable)."""
 
     def c(t):
         return t.float()[None, :, None, None]
 
-    if train:
+    if train and mesh is not None and mesh.size("dp") > 1:
+        from magma_tpu_torch.parallel.mesh import sum_both
+
+        # as x.mean and x.var give them: fp32 sums (here over the ranks too),
+        # the variance about the fp32 mean, each rounded once to x's dtype;
+        # the ranks' shares are equal (``sharding.shard_batch``)
+        xf = x.float()
+        n = x.numel() // x.shape[1] * mesh.size("dp")
+        mean_f = sum_both(xf.sum(dim=(0, 2, 3)), mesh, "dp") / n
+        var = (sum_both(((xf - mean_f[None, :, None, None]) ** 2).sum(dim=(0, 2, 3)), mesh, "dp")
+               / n).to(x.dtype)
+        mean = mean_f.to(x.dtype)
+        m = cfg.bn_momentum
+        new_s = {"mean": ((1 - m) * s["mean"] + m * mean).detach(),
+                 "var": ((1 - m) * s["var"] + m * var).detach()}
+    elif train:
         mean = x.mean(dim=(0, 2, 3))
         var = x.var(dim=(0, 2, 3), unbiased=False)
         m = cfg.bn_momentum
@@ -242,33 +259,36 @@ def _avgpool(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.avg_pool2d(x, k)  # VALID k x k window, stride k
 
 
-def _bottleneck(x, bp, bs, stride, cfg, train):
+def _bottleneck(x, bp, bs, stride, cfg, train, mesh=None):
     """1x1 -> 3x3 -> (avgpool if stride) -> 1x1, with an avgpool + 1x1
     shortcut on downsampling blocks.  Returns (y, new block stats)."""
     cdt = to_dtype(cfg.compute_dtype)
     new_bs = dict(bs)
-    out, new_bs["bn1"] = _bn(_conv(x, bp["conv1"], 1, cdt), bp["bn1"], bs["bn1"], cfg, train)
+    out, new_bs["bn1"] = _bn(_conv(x, bp["conv1"], 1, cdt), bp["bn1"], bs["bn1"], cfg, train,
+                             mesh)
     out, new_bs["bn2"] = _bn(_conv(torch.relu(out), bp["conv2"], 1, cdt), bp["bn2"], bs["bn2"],
-                             cfg, train)
+                             cfg, train, mesh)
     out = torch.relu(out)
     if stride > 1:
         out = _avgpool(out, stride)
-    out, new_bs["bn3"] = _bn(_conv(out, bp["conv3"], 1, cdt), bp["bn3"], bs["bn3"], cfg, train)
+    out, new_bs["bn3"] = _bn(_conv(out, bp["conv3"], 1, cdt), bp["bn3"], bs["bn3"], cfg, train,
+                             mesh)
     if "down_conv" in bp:
         sc = _avgpool(x, stride) if stride > 1 else x
         sc, new_bs["down_bn"] = _bn(_conv(sc, bp["down_conv"], 1, cdt), bp["down_bn"],
-                                    bs["down_bn"], cfg, train)
+                                    bs["down_bn"], cfg, train, mesh)
     else:
         sc = x
     return torch.relu(out + sc), new_bs
 
 
 def apply(params: Dict, stats: Dict, images: torch.Tensor, cfg: ClipResNetConfig,
-          *, train: bool = False) -> Tuple[torch.Tensor, Dict]:
+          *, train: bool = False, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """(b, 3, H, W) images -> ((b, tokens, out_dim) features in the compute
     dtype, new batch stats: the running statistics moved by this batch when
     ``train``, else unchanged).  ``fold_bn``'s folded params run the bf16
-    serving tower, inference only."""
+    serving tower, inference only.  ``mesh``: the batch statistics over
+    "dp" (``_bn``)."""
     if is_folded(params):
         if train:
             raise ValueError("folded (serving) params are inference-only")
@@ -279,14 +299,14 @@ def apply(params: Dict, stats: Dict, images: torch.Tensor, cfg: ClipResNetConfig
     for i, stride in enumerate((2, 1, 1), start=1):
         x, new_stats["stem"][f"bn{i}"] = _bn(_conv(x, params["stem"][f"conv{i}"], stride, cdt),
                                              params["stem"][f"bn{i}"], stats["stem"][f"bn{i}"],
-                                             cfg, train)
+                                             cfg, train, mesh)
         x = torch.relu(x)
     x = _avgpool(x, 2)
     for stage in range(1, 5):
         stage_new = []
         for b, (bp, bs) in enumerate(zip(params[f"layer{stage}"], stats[f"layer{stage}"])):
             stride = (2 if stage > 1 else 1) if b == 0 else 1
-            x, nbs = _bottleneck(x, bp, bs, stride, cfg, train)
+            x, nbs = _bottleneck(x, bp, bs, stride, cfg, train, mesh)
             stage_new.append(nbs)
         new_stats[f"layer{stage}"] = stage_new
     # "b d h w -> b (h w) d"

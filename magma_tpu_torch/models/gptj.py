@@ -39,8 +39,22 @@ against the cache history ``[0, cache_index)`` and causally against itself
 (``ops/attention.history_attention``: the chunked prefill of split
 generate and of the serving engine), and ``_write_cache`` clamps each
 row's start into ``[0, max_len - s]`` as ``dynamic_update_slice`` does.
-Ring/sp attention, the tensor-parallel int8 layout and
-``pack_lm_params_bf16`` are not ported.
+
+Parallelism (``forward(..., mesh=...)``, ``parallel/``): the rank holds
+its shards of the tree (``parallel/sharding.py``), h / tp heads.  Tensor
+parallelism is Megatron's: q/k/v/fc_in are column shards and o/fc_out
+row shards whose partial outputs are summed over "tp" in one all_reduce
+a layer (``mesh.reduce_from``; the column inputs enter through
+``mesh.copy_to``, so the backward sums their gradients), the replicated
+biases and the adapters run after the sum, the embedding and the head are
+vocab shards (the gathered logits are the unsharded path's).  The fused
+decode paths (K8, K6) stand down under tp: the tensor-parallel int8
+layout (``quantize_lm_params(fuse_in_proj=False)``) has no in_proj, and
+each projection runs K2b.  ``attention_impl="ring"`` without a cache
+runs ring attention over the rank's sequence shard
+(``parallel/ring_attention.py``); a cached step with an sp axis > 1 reads
+a position-sharded cache through ``parallel/sp_decode.py``.
+``pack_lm_params_bf16`` is not ported.
 """
 
 from __future__ import annotations
@@ -77,8 +91,11 @@ class GPTJConfig:
     param_dtype: torch.dtype = torch.float32
     adapter_param_dtype: torch.dtype = torch.float32
     # prefill attention: "flash" (the CUDA kernel; its plain version on
-    # CPU tensors) or "xla" (plain einsum + softmax)
+    # CPU tensors), "xla" (plain einsum + softmax) or "ring" (the sequence
+    # sharded over the mesh's ``sp_axis``: ring attention without a cache,
+    # the position-sharded cache with one; needs ``forward(..., mesh=...)``)
     attention_impl: str = "flash"
+    sp_axis: str = "sp"            # mesh axis ring attention shards over
     # "bf16" or "int8" (per-(position, head) scales; halves the cache stream)
     kv_cache_dtype: str = "bf16"
     # recompute each layer in the backward (torch.utils.checkpoint) instead
@@ -155,14 +172,25 @@ def init_params(generator: torch.Generator, cfg: GPTJConfig, device=None) -> Dic
     return params
 
 
-def init_kv_cache(cfg: GPTJConfig, batch: int, max_len: int, device=None) -> Dict:
+def init_kv_cache(cfg: GPTJConfig, batch: int, max_len: int, device=None,
+                  mesh=None) -> Dict:
     """Fixed-shape KV cache: {"k", "v"} each (L, b, max_len, h, hd) in bf16,
     or with ``cfg.kv_cache_dtype == "int8"`` int8 codes plus "k_scale" and
     "v_scale", bf16 (L, b, h, max_len): position-minor, so a head's scales
-    for all positions are one contiguous row (see ``_quantize_kv``)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_heads, cfg.head_dim)
+    for all positions are one contiguous row (see ``_quantize_kv``).  With
+    a ``mesh``, this rank's shard: h / tp heads (``sharding.kv_cache_spec``)
+    and, when the sequence-sharded cache is active, max_len / sp positions."""
+    h = cfg.n_heads
+    if mesh is not None:
+        h //= mesh.size("tp")
+        if _sp_cache_active(cfg, mesh):
+            sp = mesh.size(cfg.sp_axis)
+            if max_len % sp:
+                raise ValueError(f"max_len {max_len} is not divisible by {cfg.sp_axis}={sp}")
+            max_len //= sp
+    shape = (cfg.n_layers, batch, max_len, h, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
-        sc_shape = (cfg.n_layers, batch, cfg.n_heads, max_len)
+        sc_shape = (cfg.n_layers, batch, h, max_len)
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -258,7 +286,8 @@ def _attach_bvecs(params: Dict) -> None:
     blocks["bvecs"] = bvecs
 
 
-def quantize_lm_params(params: Dict, *, fuse_out_proj: bool = True) -> Dict:
+def quantize_lm_params(params: Dict, *, fuse_out_proj: bool = True,
+                       fuse_in_proj: bool = True) -> Dict:
     """Weight-only int8 layouts, byte-identical to the JAX package's jitted
     ``quantize_lm_params`` (``gptj.py:344-457``): q/k/v/fc_in quantized per
     layer and concatenated along N into "in_proj" and the untied int8 head
@@ -267,14 +296,23 @@ def quantize_lm_params(params: Dict, *, fuse_out_proj: bool = True) -> Dict:
     scales, adds "bvecs" and packs the adapters in the fused-int8 layout;
     ``fuse_out_proj=False`` (QLoRA training, ``train_lm_int8``) keeps o and
     fc_out as separate int8 stacks, differentiable in their inputs, and the
-    adapters in bf16.  Layernorms, biases and ``wte`` (the embedding) keep
+    adapters in bf16.  ``fuse_in_proj=False`` is the tensor-parallel
+    serving layout: q/k/v/o/fc_in/fc_out each a separate int8 stack (each
+    takes a clean Megatron spec, ``parallel/sharding.py``), the head, and
+    bf16 adapters.  Layernorms, biases and ``wte`` (the embedding) keep
     their dtype.  Mutates (and returns) ``params``, dropping the originals
-    as it goes.  The tensor-parallel layout (``fuse_in_proj=False``) waits
-    for parallelism."""
+    as it goes."""
     from magma_tpu_torch.ops.quant import quantize_int8
 
     params.pop("lm_head_q", None)
     attn, mlp = params["blocks"]["attn"], params["blocks"]["mlp"]
+    if not fuse_in_proj:
+        for k in ("q", "k", "v", "o"):
+            attn[k] = _quantize_stacked(attn[k])
+        for k in ("fc_in", "fc_out"):
+            mlp[k]["kernel"] = _quantize_stacked(mlp[k]["kernel"])
+        params["lm_head_q"] = quantize_int8(params["wte"].float().T, compiled=True)
+        return _serving_cast_adapters(params, mode="bf16")
     pieces = [_quantize_stacked(attn.pop(k)) for k in ("q", "k", "v")]
     pieces.append(_quantize_stacked(mlp["fc_in"].pop("kernel")))
     attn["in_proj"] = {"q": torch.cat([p["q"] for p in pieces], dim=-1),
@@ -392,6 +430,31 @@ def _layer_views(blocks: Dict, n_layers: int) -> List[Dict]:
     return split(blocks)
 
 
+def _sp_cache_active(cfg: GPTJConfig, mesh) -> bool:
+    """True when cached generation takes the sequence-sharded cache
+    (``gptj.py:607-618``): ``attention_impl="ring"`` and a mesh whose sp
+    axis is > 1.  The cache then holds this rank's positions
+    (``init_kv_cache(mesh=...)``)."""
+    return (mesh is not None and cfg.attention_impl == "ring"
+            and cfg.sp_axis in mesh.axis_names and mesh.shape[cfg.sp_axis] > 1)
+
+
+def _ring_attention(cfg, q, kk, v, kv_len, mesh, scale):
+    """Training/no-cache attention over the rank's sequence shard
+    (``gptj.py:680-705``)."""
+    if mesh is None:
+        raise ValueError("attention_impl='ring' needs a mesh: pass forward(..., mesh=...) "
+                         "(the Trainer threads it via Magma.mesh)")
+    if kv_len is not None:
+        raise ValueError("ring attention has no right-padding mask (kv_len); training masks "
+                         "via labels instead")
+    from magma_tpu_torch.parallel.ring_attention import context_parallel_attention
+
+    batch_axis = "dp" if "dp" in mesh.axis_names else None
+    return context_parallel_attention(q, kk, v, mesh, scale=scale, causal=True,
+                                      seq_axis=cfg.sp_axis, batch_axis=batch_axis)
+
+
 def _block(
     cfg: GPTJConfig,
     bp: Dict,                 # one layer's params (views)
@@ -402,6 +465,7 @@ def _block(
     cache_kv: Optional[Tuple[Dict, int]],
     cache_index,
     read_history: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """One GPT-J block: parallel attention + FFN off a single layernorm.
 
@@ -409,34 +473,75 @@ def _block(
     (with ``read_history``, a chunk that also attends to the cache history
     ``[0, cache_index)``), s == 1 a decode step that reads the layer's
     cache; either way the new K/V are returned for the bulk write in
-    ``forward``."""
+    ``forward``.  Under a mesh with tp > 1 the layer's params are this
+    rank's shards (module docstring)."""
+    from magma_tpu_torch.parallel.mesh import copy_to, reduce_from
+
     b, s, D = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    tp = 1 if mesh is None else mesh.size("tp")
+    h = cfg.n_heads // tp
     cdt = cfg.compute_dtype
     scale = (1.0 / hd ** 0.5) if cfg.scale_attn else 1.0
 
     u = _layer_norm(x, bp["ln_1"], cfg.ln_eps, cdt)
     m_pre = None
     if "in_proj" in bp["attn"]:
+        if tp > 1:
+            raise ValueError("tensor parallelism needs the separate projections: the bf16 "
+                             "tree or quantize_lm_params(fuse_in_proj=False)")
         # serving layout: [q | k | v | fc_in] off the same u in one launch
         fused = _mm(u, bp["attn"]["in_proj"], cdt)
         m_pre = fused[..., 3 * D:]
         q, kk, v = (t.reshape(b, s, h, hd) for t in fused[..., :3 * D].split(D, -1))
+        u_col = u
     else:
-        q = _mm(u, bp["attn"]["q"], cdt).reshape(b, s, h, hd)
-        kk = _mm(u, bp["attn"]["k"], cdt).reshape(b, s, h, hd)
-        v = _mm(u, bp["attn"]["v"], cdt).reshape(b, s, h, hd)
+        u_col = copy_to(u, mesh, "tp")  # the column shards' input
+        q = _mm(u_col, bp["attn"]["q"], cdt).reshape(b, s, h, hd)
+        kk = _mm(u_col, bp["attn"]["k"], cdt).reshape(b, s, h, hd)
+        v = _mm(u_col, bp["attn"]["v"], cdt).reshape(b, s, h, hd)
     q = apply_rotary(q, sin, cos, cfg.rotary_dim)
     kk = apply_rotary(kk, sin, cos, cfg.rotary_dim)
 
     new_kv = None
-    if cache_kv is not None and s > 1 and read_history:
+    sp_cache = _sp_cache_active(cfg, mesh)
+    if cache_kv is None:
+        if cfg.attention_impl == "ring":
+            attn = _ring_attention(cfg, q, kk, v, kv_len, mesh, scale)
+        else:
+            attn = causal_attention(q, kk, v, scale=scale, impl=cfg.attention_impl,
+                                    kv_len=kv_len)
+    elif s > 1 and read_history:
+        if sp_cache:
+            raise ValueError("the sequence-sharded cache has no chunked prefill "
+                             "(read_history)")
         cache, layer = cache_kv
         attn = history_attention(q, cache["k"][layer], cache["v"][layer], cache_index, kk, v,
                                  scale=scale, kv_len=kv_len, kv_scales=_layer_scales(cache, layer))
-    elif cache_kv is None or s > 1:
-        attn = causal_attention(q, kk, v, scale=scale, impl=cfg.attention_impl,
-                                kv_len=kv_len)
+    elif s > 1:
+        # prefill: the prompt's own keys.  With the sequence-sharded cache
+        # the prompt runs whole on every rank and the cache write keeps each
+        # rank's positions; "ring" without it has no cached meaning.  Either
+        # way "ring" prefills as JAX's "flash" does, which takes its einsum
+        # path at head dims the kernel lacks (attention.py:94-95)
+        impl = cfg.attention_impl
+        if impl == "ring":
+            if not sp_cache:
+                import warnings
+
+                warnings.warn(
+                    "attention_impl='ring' without a >1-'sp' mesh has no cached-generation "
+                    "path; using the flash kernel for prefill/decode (pass mesh= for the "
+                    "sequence-sharded cache)", RuntimeWarning, stacklevel=2)
+            impl = "flash" if hd % 128 == 0 else "xla"
+        attn = causal_attention(q, kk, v, scale=scale, impl=impl, kv_len=kv_len)
+    elif sp_cache:
+        from magma_tpu_torch.parallel.sp_decode import sp_decode_attention
+
+        cache, layer = cache_kv
+        attn = sp_decode_attention(q, cache["k"][layer], cache["v"][layer], cache_index,
+                                   (kk, v), mesh, cfg.sp_axis, scale=scale,
+                                   kv_scales=_layer_scales(cache, layer))
     else:
         cache, layer = cache_kv
         attn = decode_attention(q, cache["k"][layer], cache["v"][layer], cache_index,
@@ -445,7 +550,7 @@ def _block(
     if cache_kv is not None:
         new_kv = (kk.to(cdt), v.to(cdt))
 
-    ctx = attn.reshape(b, s, D)
+    ctx = attn.reshape(b, s, h * hd)
     if "out_proj" in bp["attn"]:
         # serving layout: o_proj and fc_out over one weight stream in one
         # launch, their outputs apart for the per-branch adapters
@@ -455,11 +560,19 @@ def _block(
         mh = F.gelu(m_pre + bp["mlp"]["fc_in"]["bias"].to(cdt), approximate="tanh")
         a, m = dual_matmul_stacked(ctx, mh, w, w["idx"], out_dtype=cdt)
     else:
-        a = _mm(ctx, bp["attn"]["o"], cdt)
+        # under tp the row shards' partial sums meet in one all_reduce for
+        # both branches: an int8 product's in fp32 (its kernel's output, so
+        # the sum rounds once, as one product over the whole K does), the
+        # bf16 tree's in the compute dtype
+        pdt = torch.float32 if tp > 1 and isinstance(bp["attn"]["o"], dict) else cdt
+        a = _mm(ctx, bp["attn"]["o"], pdt)
         if m_pre is None:
-            m_pre = _mm(u, bp["mlp"]["fc_in"]["kernel"], cdt)
+            m_pre = _mm(u_col, bp["mlp"]["fc_in"]["kernel"], cdt)
         m = F.gelu(m_pre + bp["mlp"]["fc_in"]["bias"].to(cdt), approximate="tanh")
-        m = _mm(m, bp["mlp"]["fc_out"]["kernel"], cdt)
+        m = _mm(m, bp["mlp"]["fc_out"]["kernel"], pdt)
+        if tp > 1:
+            a, m = (t.to(cdt) for t in
+                    reduce_from(torch.cat([a, m], -1), mesh, "tp").split(D, -1))
 
     if "o_bias" in bp["attn"]:
         a = a + bp["attn"]["o_bias"].to(cdt)
@@ -601,7 +714,7 @@ def _run_decode_boundary(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, sin, co
 
 
 def _write_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 cache_index) -> Dict:
+                 cache_index, sp: Optional[Tuple[int, int]] = None) -> Dict:
     """Write all layers' new K/V, (L, b, s, h, hd), into the cache at
     ``cache_index`` (an int, a scalar tensor, or per-row (b,)).  Each row's
     start clamps into ``[0, max_len - s]``, as ``dynamic_update_slice``
@@ -609,7 +722,8 @@ def _write_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
     ``max_len`` lands at ``max_len - s``.  An int8 cache quantizes the
     entries here, its only write point, and writes the scales on their
     position axis 3.  Updates the cache in place (the JAX package returns a
-    new one) and returns it."""
+    new one) and returns it.  ``sp = (rank index, ranks)`` marks this
+    rank's shard of a position-sharded cache (``_write_cache_sp``)."""
     b, s = k_new.shape[1:3]
     max_len = cache["k"].shape[2]
     if "k_scale" in cache:
@@ -618,6 +732,8 @@ def _write_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
             entries[name], entries[f"{name}_scale"] = _quantize_kv(new)
     else:
         entries = {"k": k_new.to(cache["k"].dtype), "v": v_new.to(cache["v"].dtype)}
+    if sp is not None:
+        return _write_cache_sp(cache, entries, cache_index, *sp)
     if isinstance(cache_index, numbers.Integral):
         # a host index: plain slices, no index tensor copied to the card
         st = min(max(int(cache_index), 0), max_len - s)
@@ -637,6 +753,48 @@ def _write_cache(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
             cache[name].transpose(-1, -2)[:, rows, pos] = new.transpose(-1, -2)
         else:
             cache[name][:, rows, pos] = new
+    return cache
+
+
+def _write_cache_sp(cache: Dict, entries: Dict, cache_index, idx: int, n: int) -> Dict:
+    """The write of ``_write_cache`` into rank ``idx``'s shard of a cache
+    whose position axis is split over n ranks: each row's start clamps into
+    ``[0, n s_loc - s]`` on the global axis first, then only the positions
+    this rank owns, ``[idx s_loc, (idx + 1) s_loc)``, are written."""
+    b, s = entries["k"].shape[1:3]
+    s_loc = cache["k"].shape[2]
+    off = idx * s_loc
+    if isinstance(cache_index, numbers.Integral):
+        st = min(max(int(cache_index), 0), n * s_loc - s)
+        lo, hi = max(st, off), min(st + s, off + s_loc)
+        if lo < hi:
+            for name, new in entries.items():
+                src = new[..., lo - st:hi - st] if name.endswith("_scale") else \
+                    new[:, :, lo - st:hi - st]
+                if name.endswith("_scale"):
+                    cache[name][..., lo - off:hi - off] = src
+                else:
+                    cache[name][:, :, lo - off:hi - off] = src
+        return cache
+    if s != 1:
+        raise ValueError("a per-row write into the sequence-sharded cache takes one "
+                         "position (a decode step)")
+    dev = cache["k"].device
+    start = torch.as_tensor(cache_index, device=dev).to(torch.long).reshape(-1).expand(b)
+    local = start.clamp(0, n * s_loc - 1) - off
+    owned = (local >= 0) & (local < s_loc)
+    pos = local.clamp(0, s_loc - 1)
+    rows = torch.arange(b, device=dev)
+    for name, new in entries.items():
+        # a row this rank does not own writes its own value back
+        if name.endswith("_scale"):
+            view = cache[name].transpose(-1, -2)          # (L, b, max_len, h)
+            old = view[:, rows, pos]
+            view[:, rows, pos] = torch.where(owned[None, :, None], new[..., 0], old)
+        else:
+            old = cache[name][:, rows, pos]
+            keep = owned.reshape(1, b, *([1] * (old.dim() - 2)))
+            cache[name][:, rows, pos] = torch.where(keep, new[:, :, 0], old)
     return cache
 
 
@@ -660,6 +818,7 @@ def forward(
     remat: Optional[bool] = None,
     return_hidden: bool = False,
     read_history: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """LM forward from embeddings.  Returns (fp32 logits, cache), or
     (hidden after ln_f, cache) with ``return_hidden=True`` (the chunked
@@ -671,13 +830,21 @@ def forward(
     ``read_history`` (with a cache): a chunk of s > 1 positions attends to
     the history ``[0, cache_index)`` as well as causally to itself, and the
     fused decode paths stand down, as in the JAX package
-    (``gptj.py:1207, 1220``)."""
+    (``gptj.py:1207, 1220``).
+
+    ``mesh`` (``parallel/``): ``params`` are this rank's shards and the
+    collectives run over the mesh's axes (module docstring).  With
+    ``attention_impl="ring"`` and no cache, ``inputs_embeds`` is this
+    rank's shard of the sequence, which starts (default ``positions``) at
+    ``axis_index(sp_axis) * s``, and so are the hidden states returned."""
     b, s, _ = inputs_embeds.shape
     cdt = cfg.compute_dtype
     x = inputs_embeds.to(cdt)
     dev = x.device
     if positions is None:  # no host scalar is copied to the card
         start = 0 if cache_index is None else cache_index
+        if cache is None and cfg.attention_impl == "ring" and mesh is not None:
+            start = mesh.axis_index(cfg.sp_axis) * s
         if isinstance(start, numbers.Integral):
             positions = torch.arange(int(start), int(start) + s, device=dev).expand(b, s)
         else:
@@ -686,7 +853,11 @@ def forward(
     sin, cos = rotary_sincos(positions, cfg.rotary_dim)
 
     blocks = params["blocks"]
-    fused_ok = cache is not None and not read_history
+    sp_cache = _sp_cache_active(cfg, mesh)
+    # the single-chip fused decodes assume the whole cache and in_proj are
+    # local: they stand down under the sequence-sharded cache (and tp has no
+    # in_proj)
+    fused_ok = cache is not None and not read_history and not sp_cache
     if fused_ok and _declayer_ok(cfg, blocks, x, cache):
         x, k_news, v_news = _run_decode_fused_layers(cfg, blocks, x, positions, cache,
                                                      cache_index)
@@ -694,29 +865,31 @@ def forward(
         x, k_news, v_news = _run_decode_boundary(cfg, blocks, x, sin, cos, cache, cache_index)
     elif cache is None and (cfg.remat if remat is None else remat) and torch.is_grad_enabled():
         for bp in _layer_views(blocks, cfg.n_layers):
-            x = checkpoint(_block_no_cache, cfg, bp, x, sin, cos, kv_len, use_reentrant=False)
+            x = checkpoint(_block_no_cache, cfg, bp, x, sin, cos, kv_len, mesh,
+                           use_reentrant=False)
     else:
         k_news, v_news = [], []
         for i, bp in enumerate(_layer_views(blocks, cfg.n_layers)):
             x, new_kv = _block(cfg, bp, x, sin, cos, kv_len,
                                None if cache is None else (cache, i), cache_index,
-                               read_history)
+                               read_history, mesh)
             if new_kv is not None:
                 k_news.append(new_kv[0])
                 v_news.append(new_kv[1])
         if cache is not None:
             k_news, v_news = torch.stack(k_news), torch.stack(v_news)
     if cache is not None:
-        cache = _write_cache(cache, k_news, v_news, cache_index)
+        sp = (mesh.axis_index(cfg.sp_axis), mesh.size(cfg.sp_axis)) if sp_cache else None
+        cache = _write_cache(cache, k_news, v_news, cache_index, sp)
 
     x = _layer_norm(x, params["ln_f"], cfg.ln_eps, cdt)
     if return_hidden:
         return x, cache
-    return lm_head(cfg, params, x), cache
+    return lm_head(cfg, params, x, mesh), cache
 
 
-def _block_no_cache(cfg, bp, x, sin, cos, kv_len):
-    return _block(cfg, bp, x, sin, cos, kv_len, None, None)[0]
+def _block_no_cache(cfg, bp, x, sin, cos, kv_len, mesh=None):
+    return _block(cfg, bp, x, sin, cos, kv_len, None, None, mesh=mesh)[0]
 
 
 class _HeadF32(torch.autograd.Function):
@@ -736,12 +909,7 @@ class _HeadF32(torch.autograd.Function):
         return torch.mm(g.to(w.dtype), w, out_dtype=torch.float32).to(w.dtype), None
 
 
-def lm_head(cfg: GPTJConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
-    """Hidden states -> fp32 logits: the int8 head ``lm_head_q`` (K2a,
-    differentiable through K10) when ``quantize_lm_params`` made one, else
-    the tied (padded) ``wte``, the product accumulated in fp32 and returned
-    unrounded, as ``preferred_element_type=float32`` gives it in the JAX
-    package."""
+def _head_local(params: Dict, hidden: torch.Tensor) -> torch.Tensor:
     if "lm_head_q" in params:
         return _mm(hidden, params["lm_head_q"], torch.float32)
     w = params["wte"].to(hidden.dtype)
@@ -754,9 +922,36 @@ def lm_head(cfg: GPTJConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor
     return hidden.float() @ w.float().T
 
 
-def embed_tokens(cfg: GPTJConfig, params: Dict, ids: torch.Tensor) -> torch.Tensor:
-    """Token ids -> word embeddings in the compute dtype."""
-    return F.embedding(ids, params["wte"]).to(cfg.compute_dtype)
+def lm_head(cfg: GPTJConfig, params: Dict, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Hidden states -> fp32 logits: the int8 head ``lm_head_q`` (K2a,
+    differentiable through K10) when ``quantize_lm_params`` made one, else
+    the tied (padded) ``wte``, the product accumulated in fp32 and returned
+    unrounded, as ``preferred_element_type=float32`` gives it in the JAX
+    package.  Under tp the rank's vocab shard (the int8 shard's zero
+    padding cut off) is gathered over "tp" into the full padded vocab."""
+    from magma_tpu_torch.parallel.mesh import copy_to, gather_from
+
+    tp = 1 if mesh is None else mesh.size("tp")
+    if tp == 1:
+        return _head_local(params, hidden)
+    local = _head_local(params, copy_to(hidden, mesh, "tp"))
+    return gather_from(local[..., :cfg.padded_vocab_size // tp], mesh, "tp")
+
+
+def embed_tokens(cfg: GPTJConfig, params: Dict, ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Token ids -> word embeddings in the compute dtype.  Under tp each
+    rank looks up the ids of its vocab shard, zeros elsewhere, and the
+    shards are summed over "tp" (exact: one term is non-zero)."""
+    from magma_tpu_torch.parallel.mesh import reduce_from
+
+    if mesh is None or mesh.size("tp") == 1:
+        return F.embedding(ids, params["wte"]).to(cfg.compute_dtype)
+    wte = params["wte"]
+    lo = mesh.axis_index("tp") * wte.shape[0]
+    local = ids - lo
+    mine = (local >= 0) & (local < wte.shape[0])
+    emb = F.embedding(torch.where(mine, local, 0), wte) * mine[..., None].to(wte.dtype)
+    return reduce_from(emb, mesh, "tp").to(cfg.compute_dtype)
 
 
 def logits_mask(cfg: GPTJConfig, device=None) -> torch.Tensor:

@@ -103,16 +103,22 @@ def fold_for_serving(params: Dict, stats: Dict, cfg: ImagePrefixConfig) -> Dict:
 
 
 def apply(params: Dict, stats: Dict, images: torch.Tensor, cfg: ImagePrefixConfig,
-          *, train: bool = False, generator: Optional[torch.Generator] = None
+          *, train: bool = False, generator: Optional[torch.Generator] = None, mesh=None
           ) -> Tuple[torch.Tensor, Dict]:
     """(b, 3, H, W) images -> ((b, out_seq_len, out_dim) embeddings in the
     compute dtype, new batch stats).  ``train`` runs the tower's training
     BN and, with ``dropout_prob`` > 0, dropout: an element is kept with
     probability 1 - p and scaled by 1 / (1 - p) (``image_prefix.py:148-151``),
-    the bits drawn from ``generator`` (JAX's bits cannot be reproduced)."""
+    the bits drawn from ``generator`` (JAX's bits cannot be reproduced).
+    ``mesh``: ``images`` are this rank's "dp" shard, and a CLIP ResNet's
+    training batch statistics are taken over the whole batch, as GSPMD
+    takes them over the dp-sharded batch."""
     module, enc_cfg, pooled = cfg.encoder
     cdt = to_dtype(cfg.compute_dtype)
-    feats, enc_stats = module.apply(params["enc"], stats["enc"], images, enc_cfg, train=train)
+    # only the CLIP ResNets keep batch statistics
+    kw = {"mesh": mesh} if mesh is not None and module is clip_resnet else {}
+    feats, enc_stats = module.apply(params["enc"], stats["enc"], images, enc_cfg, train=train,
+                                    **kw)
     x = feats.to(cdt) @ params["proj"]["kernel"].to(cdt) + params["proj"]["bias"].to(cdt)
     if pooled:
         x = x.reshape(x.shape[0], cfg.image_seq_len, cfg.out_dim)

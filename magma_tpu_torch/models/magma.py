@@ -12,6 +12,15 @@ nothing moves to the CPU when a GPU is asked for and missing.
 (the freezing policy), ``loss_fn`` (differentiable with torch.autograd)
 and ``forward``; ``train_lm_int8`` quantizes the frozen LM into the QLoRA
 layout right after init.  ``pack_for_serving`` is not ported.
+
+``mesh`` (``parallel/``; the JAX package's ``sp_mesh``, which the port
+needs for tp and dp as well, having no GSPMD): the Trainer sets it to its
+mesh, and a caller that holds this rank's shards of ``params`` sets it
+too.  ``embed``, ``generate`` and ``loss_fn`` then run the LM's parallel
+layers over it: the vocab-sharded embedding, the sequence-sharded ring
+(``loss_fn`` takes the rank's slice of the sequence), the loss summed
+over the ranks' positions and divided by the count over "dp" and "sp",
+and the image tower's batch statistics over "dp".
 """
 
 from __future__ import annotations
@@ -27,8 +36,8 @@ from magma_tpu_torch.models import gptj, image_prefix as ip_mod
 from magma_tpu_torch.models.adapters import AdapterSpec
 from magma_tpu_torch.ops.sampling import generate_tokens, generate_tokens_split, strip_after_eos
 from magma_tpu_torch.tokenizer import get_tokenizer
-from magma_tpu_torch.training.labels import (build_labels, causal_lm_loss,
-                                             causal_lm_loss_chunked)
+from magma_tpu_torch.training.labels import (IGNORE, _nll, build_labels, causal_lm_loss,
+                                             causal_lm_loss_chunked, chunked_nll)
 from magma_tpu_torch.utils import to_dtype, tree_map, tree_paths
 
 # b·s (after padding to 64) above which generate takes the split path
@@ -101,6 +110,8 @@ class Magma:
 
         self.prefix_config = build_prefix_config(config, self.lm_config)
         self.image_prefix_seq_len = self.prefix_config.out_seq_len
+        # the process mesh the params are sharded over (module docstring)
+        self.mesh = None
 
         from magma_tpu_torch.data.transforms import get_transforms
 
@@ -177,7 +188,7 @@ class Magma:
             x = torch.as_tensor(x, device=self.device)
             if x.dim() == 2:
                 emb_list.append(gptj.embed_tokens(self.lm_config, self.params["lm"],
-                                                  x.long()))
+                                                  x.long(), self.mesh))
             elif x.dim() == 4:
                 emb, _ = ip_mod.apply(self.params["image_prefix"],
                                       self.state["image_prefix"], x.float(),
@@ -199,6 +210,7 @@ class Magma:
         generator: Optional[torch.Generator] = None,
         prompt_len=None,
         timing: Optional[dict] = None,
+        mesh=None,
     ):
         """KV-cached sampling.  Parity: magma.py:214-236 + sampling.py.
 
@@ -210,8 +222,11 @@ class Magma:
         prefill's activations.  ``prompt_len`` (optional, (b,))
         gives per-row true lengths of right-padded prompts; ``timing``
         receives the stage times (see ``generate_tokens``) and ``steps``.
-        Returns decoded strings, or the (b, max_steps) token array with
-        ``decode=False``."""
+        ``mesh`` (default ``self.mesh``): ``generate_tokens`` over it, never
+        the split path (``magma.py:256-296``): the sequence-sharded cache
+        with ``attention_impl="ring"``, tensor parallelism over sharded
+        params.  Returns decoded strings, or the (b, max_steps) token array
+        with ``decode=False``."""
         embeddings = torch.as_tensor(embeddings, device=self.device)
         s = embeddings.shape[1]
         pad = (-s) % 64
@@ -222,8 +237,11 @@ class Magma:
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.seed()
+        mesh = self.mesh if mesh is None else mesh
         gen, extra = generate_tokens, {}
-        if embeddings.shape[0] * embeddings.shape[1] > SPLIT_ABOVE:
+        if mesh is not None:
+            extra = dict(mesh=mesh)
+        elif embeddings.shape[0] * embeddings.shape[1] > SPLIT_ABOVE:
             gen, extra = generate_tokens_split, dict(window=8, prefill_chunk=512)
         tokens, steps = gen(
             self.lm_config, self.params["lm"], embeddings, generator,
@@ -259,23 +277,61 @@ class Magma:
         if captions.shape[1] != self.seq_len:
             raise ValueError(f"in training, captions should be padded to sequence length "
                              f"({self.seq_len}), but are length {captions.shape[1]}")
+        mesh = self.mesh
         new_state = state
         if input_embeddings is None:
             input_embeddings, new_ip_stats = ip_mod.apply(
                 params["image_prefix"], state["image_prefix"], images, self.prefix_config,
-                train=train, generator=generator)
+                train=train, generator=generator, mesh=mesh)
             new_state = {"image_prefix": new_ip_stats}
         s_img = input_embeddings.shape[1]
         labels = build_labels(s_img, captions, self.eos_token)
-        word_embeds = gptj.embed_tokens(self.lm_config, params["lm"], captions.long())
+        word_embeds = gptj.embed_tokens(self.lm_config, params["lm"], captions.long(), mesh)
         # drop the caption's right padding so the total stays seq_len
         embeds = torch.cat([input_embeddings, word_embeds[:, :self.seq_len - s_img]], dim=1)
+        if mesh is None:
+            if return_logits:
+                logits, _ = gptj.forward(self.lm_config, params["lm"], embeds)
+                return (causal_lm_loss(logits, labels, self.lm_config.vocab_size),
+                        (new_state, logits))
+            hidden, _ = gptj.forward(self.lm_config, params["lm"], embeds, return_hidden=True)
+            loss = causal_lm_loss_chunked(self.lm_config, params["lm"], hidden, labels)
+            return loss, (new_state, None)
+        return self._mesh_loss(params, embeds, labels, mesh, return_logits, new_state)
+
+    def _mesh_loss(self, params, embeds, labels, mesh, return_logits, new_state):
+        """The loss over a mesh: this rank's share of the global NLL sum
+        divided by the global count of valid positions (over "dp" and "sp"),
+        so the ranks' losses (and gradients) sum to the JAX package's global
+        mean (``labels.py:97-114``).  With ring attention the rank runs its
+        slice of the sequence and the next-token targets of that slice."""
+        from magma_tpu_torch.parallel.mesh import all_reduce
+
+        cfg = self.lm_config
+        targets = labels[:, 1:]
+        if cfg.attention_impl == "ring":
+            if return_logits:
+                raise ValueError("ring attention gives each rank its slice of the sequence; "
+                                 "return_logits needs the whole")
+            n, i = mesh.size(cfg.sp_axis), mesh.axis_index(cfg.sp_axis)
+            if embeds.shape[1] % n:
+                raise ValueError(f"sequence {embeds.shape[1]} is not divisible by "
+                                 f"{cfg.sp_axis}={n}")
+            s_loc = embeds.shape[1] // n
+            embeds = embeds[:, i * s_loc:(i + 1) * s_loc]
+            targets = torch.nn.functional.pad(targets, (0, 1), value=IGNORE)
+            targets = targets[:, i * s_loc:(i + 1) * s_loc]
+        hidden, _ = gptj.forward(cfg, params["lm"], embeds, return_hidden=True, mesh=mesh)
+        if cfg.attention_impl != "ring":
+            hidden = hidden[:, :-1]
+        logits = None
         if return_logits:
-            logits, _ = gptj.forward(self.lm_config, params["lm"], embeds)
-            return causal_lm_loss(logits, labels, self.lm_config.vocab_size), (new_state, logits)
-        hidden, _ = gptj.forward(self.lm_config, params["lm"], embeds, return_hidden=True)
-        loss = causal_lm_loss_chunked(self.lm_config, params["lm"], hidden, labels)
-        return loss, (new_state, None)
+            logits = gptj.lm_head(cfg, params["lm"], hidden, mesh)
+            nll, count = _nll(logits, targets, cfg.vocab_size)
+        else:
+            nll, count = chunked_nll(cfg, params["lm"], hidden, targets, mesh=mesh)
+        count = all_reduce(count.clone(), mesh, ("dp", "sp"))
+        return nll / torch.clamp(count, min=1), (new_state, logits)
 
     @torch.no_grad()
     def forward(self, images, captions, input_embeddings=None):

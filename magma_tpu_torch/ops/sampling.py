@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from magma_tpu_torch.parallel.mesh import broadcast
 from magma_tpu_torch.utils import round_up
 
 NEG_INF = float("-inf")
@@ -164,10 +165,19 @@ def generate_tokens(
     prompt_len=None,               # None, int, or (b,) true lengths
     top_p_mode: str = "reference",
     timing: Optional[dict] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, int]:
     """KV-cached generation.  Returns (tokens (b, max_steps) int64 on the
     embeddings' device, number of steps taken before early exit).
     Positions after the early exit are EOS.
+
+    ``mesh`` (``parallel/``): ``params`` are this rank's shards.  With
+    ``attention_impl="ring"`` and an sp axis > 1 the cache is sharded over
+    positions: ``max_len`` rounds up to a multiple of sp and each rank holds
+    ``max_len / sp`` of them (``sampling.py:223-224``); decode attention is
+    ``parallel/sp_decode.py``.  Each step's tokens are the first model
+    rank's, broadcast over "tp" and "sp", so every rank takes the same
+    early exit.
 
     ``prompt_len`` may be per-row (b,) for right-padded prompts of
     different lengths: each row decodes from its own last true position,
@@ -189,12 +199,14 @@ def generate_tokens(
 
     # cache length rounded up to 64, as the JAX package sizes it
     max_len = round_up(s + max_steps, 64)
-    cache = gptj.init_kv_cache(cfg, b, max_len, device=dev)
+    if gptj._sp_cache_active(cfg, mesh):
+        max_len = round_up(max_len, mesh.size(cfg.sp_axis))
+    cache = gptj.init_kv_cache(cfg, b, max_len, device=dev, mesh=mesh)
 
     hidden, cache = gptj.forward(cfg, params, embeddings, cache=cache,
                                  cache_index=0, kv_len=prompt_len,
-                                 return_hidden=True)
-    last = gptj.lm_head(cfg, params, _last_true_hidden(hidden, prompt_len))[:, 0]
+                                 return_hidden=True, mesh=mesh)
+    last = gptj.lm_head(cfg, params, _last_true_hidden(hidden, prompt_len), mesh)[:, 0]
     t_prefill = _mark(dev) if timing is not None else None
 
     tokens = torch.full((b, max_steps), eos_token, dtype=torch.long, device=dev)
@@ -205,14 +217,15 @@ def generate_tokens(
         tok = sample_token(generator, last, temperature=temperature, top_k=top_k,
                            top_p=top_p, vocab_size=cfg.vocab_size,
                            top_p_mode=top_p_mode)
-        tok = torch.where(done, eos_token, tok)
+        tok = broadcast(torch.where(done, eos_token, tok), mesh, ("tp", "sp"))
         tokens[:, step] = tok
         done = done | (tok == eos_token)
         step += 1
         if step == max_steps or bool(done.all()):
             break
-        emb = gptj.embed_tokens(cfg, params, tok[:, None])
-        logits, cache = gptj.forward(cfg, params, emb, cache=cache, cache_index=cur_len)
+        emb = gptj.embed_tokens(cfg, params, tok[:, None], mesh)
+        logits, cache = gptj.forward(cfg, params, emb, cache=cache, cache_index=cur_len,
+                                     mesh=mesh)
         last = logits[:, -1]
         cur_len = cur_len + 1
     if timing is not None:

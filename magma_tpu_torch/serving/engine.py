@@ -28,8 +28,17 @@ and sampling parameters from fresh pinned buffers without waiting, and the
 pipelined mode (default) dispatches a pool's next window, chained from the
 device-resident last tokens, before it fetches the previous window's
 tokens: one device-to-host copy per window.  Sampling draws from the
-engine's own ``torch.Generator`` on the device, seeded by ``seed``.  The
-JAX package's ``mesh`` (tensor-parallel serving) is not ported.
+engine's own ``torch.Generator`` on the device, seeded by ``seed``.
+
+Tensor parallelism (``mesh=``, ``engine.py:377-399``): one process per
+rank, each holding its Megatron shards of the LM (the caller shards the
+tree: ``parallel/sharding.py`` ``shard_lm_params``) and head-sharded pools, the forward's
+collectives over "tp" (``models/gptj.py``).  Every rank must take the same
+host decisions (admission, EOS, retirement, windows) or a collective waits
+forever: every rank samples from the same gathered logits, and the
+sampled tokens are then broadcast from the first rank over "tp", so the
+ranks hold the same tokens whatever a sampling kernel does (one broadcast
+of B ids a step; JAX's output tokens are replicated likewise).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import torch.nn.functional as F
 
 from magma_tpu_torch.models import gptj
 from magma_tpu_torch.ops.sampling import sample_token, sample_token_batched, strip_after_eos
+from magma_tpu_torch.parallel.mesh import broadcast
 
 
 @dataclasses.dataclass
@@ -91,10 +101,11 @@ class _CacheGroup:
     """One size class: a dense (B, max_len) cache pool and its host
     bookkeeping."""
 
-    def __init__(self, cfg, max_batch: int, max_len: int, eos_token: int, device):
+    def __init__(self, cfg, max_batch: int, max_len: int, eos_token: int, device, mesh=None):
         self.max_batch = max_batch
         self.max_len = max_len
-        self.cache = gptj.init_kv_cache(cfg, max_batch, max_len, device=device)
+        # under tp, this rank's heads of the pool (sharding.kv_cache_spec)
+        self.cache = gptj.init_kv_cache(cfg, max_batch, max_len, device=device, mesh=mesh)
         self.cur_lens = np.zeros(max_batch, np.int32)
         self.last_toks = np.full(max_batch, eos_token, np.int64)
         # pipelined mode: the last tokens the next window chains from
@@ -111,31 +122,33 @@ class _CacheGroup:
         return np.array([s is not None for s in self.slots])
 
 
-def _prefill_full(cfg, params, embeds, prompt_len: int, *, scratch_len: int):
+def _prefill_full(cfg, params, embeds, prompt_len: int, *, scratch_len: int, mesh=None):
     """Whole-prompt prefill into a fresh 1-row scratch cache of
     ``scratch_len`` positions.  Returns (scratch, hidden (1, 1, D) at the
     last true position)."""
     dev = embeds.device
-    scratch = gptj.init_kv_cache(cfg, 1, scratch_len, device=dev)
+    scratch = gptj.init_kv_cache(cfg, 1, scratch_len, device=dev, mesh=mesh)
     hidden, scratch = gptj.forward(
         cfg, params, embeds, cache=scratch, cache_index=0,
-        kv_len=torch.full((1,), prompt_len, dtype=torch.int32, device=dev), return_hidden=True)
+        kv_len=torch.full((1,), prompt_len, dtype=torch.int32, device=dev), return_hidden=True,
+        mesh=mesh)
     return scratch, hidden[:, prompt_len - 1:prompt_len]
 
 
-def _chunk_body(cfg, params, scratch, emb_chunk, offset: int, true_len: int):
+def _chunk_body(cfg, params, scratch, emb_chunk, offset: int, true_len: int, mesh=None):
     """One chunk of an incremental prefill into a 1-row scratch cache: it
     attends to the history ``[0, offset)`` and causally to itself."""
     dev = emb_chunk.device
     hidden, scratch = gptj.forward(
         cfg, params, emb_chunk, cache=scratch, cache_index=offset,
         kv_len=torch.full((1,), true_len, dtype=torch.int32, device=dev), return_hidden=True,
-        read_history=True)
+        read_history=True, mesh=mesh)
     return scratch, hidden[:, true_len - 1:true_len]
 
 
 def _install_slot(cfg, params, cache, scratch, slot: int, last_h, generator,
-                  sampling: Tuple[float, int, float], *, top_p_mode: str) -> torch.Tensor:
+                  sampling: Tuple[float, int, float], *, top_p_mode: str,
+                  mesh=None) -> torch.Tensor:
     """Copy a finished scratch prefill into pool row ``slot`` and sample the
     request's first token (a 0-d device tensor).  A chunked scratch may be
     longer than the pool: its position axis (2 for K/V, 3 for the int8
@@ -147,16 +160,16 @@ def _install_slot(cfg, params, cache, scratch, slot: int, last_h, generator,
         pool[:, slot] = src[:, 0]
     dev = last_h.device
     t, k, p = sampling
-    logits = gptj.lm_head(cfg, params, last_h)[:, 0]
+    logits = gptj.lm_head(cfg, params, last_h, mesh)[:, 0]
     tok = sample_token_batched(
         generator, logits, torch.full((1,), t, device=dev),
         torch.full((1,), k, dtype=torch.int32, device=dev), torch.full((1,), p, device=dev),
         vocab_size=cfg.vocab_size, top_p_mode=top_p_mode)
-    return tok[0]
+    return broadcast(tok, mesh, "tp")[0]
 
 
 def _window_body(cfg, params, cache, last_toks, cur_lens, active, generator, sample_fn, *,
-                 n_steps: int, eos_token: int):
+                 n_steps: int, eos_token: int, mesh=None):
     """``n_steps`` decode steps for every row of one pool; rows not active
     keep their ``cur_len``, emit EOS and embed token 0 (EOS may be no
     token id).  ``sample_fn(generator, logits)`` returns (B,) tokens.
@@ -164,11 +177,11 @@ def _window_body(cfg, params, cache, last_toks, cur_lens, active, generator, sam
     toks, tok, lens = [], last_toks, cur_lens
     step = active.to(lens.dtype)
     for _ in range(n_steps):
-        emb = gptj.embed_tokens(cfg, params, torch.where(active, tok, 0)[:, None])
+        emb = gptj.embed_tokens(cfg, params, torch.where(active, tok, 0)[:, None], mesh)
         hidden, cache = gptj.forward(cfg, params, emb, cache=cache, cache_index=lens,
-                                     return_hidden=True)
-        logits = gptj.lm_head(cfg, params, hidden)[:, 0]
-        tok = torch.where(active, sample_fn(generator, logits), eos_token)
+                                     return_hidden=True, mesh=mesh)
+        logits = gptj.lm_head(cfg, params, hidden, mesh)[:, 0]
+        tok = broadcast(torch.where(active, sample_fn(generator, logits), eos_token), mesh, "tp")
         toks.append(tok)
         lens = lens + step
     return cache, torch.stack(toks, dim=1)
@@ -189,22 +202,22 @@ def _batched_sampler(cfg, temps, top_ks, top_ps, top_p_mode) -> Callable:
 
 
 def _decode(cfg, params, cache, last_toks, cur_lens, active, generator, sample_fn, *,
-            n_steps, eos_token):
+            n_steps, eos_token, mesh=None):
     """A decode window alone.  The active mask is frozen for the window;
     rows that emit EOS inside it decode on into positions the host
     discards."""
     return _window_body(cfg, params, cache, last_toks, cur_lens, active, generator, sample_fn,
-                        n_steps=n_steps, eos_token=eos_token)
+                        n_steps=n_steps, eos_token=eos_token, mesh=mesh)
 
 
 def _decode_with_chunk(cfg, params, cache, last_toks, cur_lens, active, generator, sample_fn,
-                       scratch, emb_chunk, offset, true_len, *, n_steps, eos_token):
+                       scratch, emb_chunk, offset, true_len, *, n_steps, eos_token, mesh=None):
     """A piggybacked dispatch: the in-flight prefill's next chunk (its own
     scratch cache), then a decode window of the pool.  Returns (cache,
     tokens, scratch, hidden at the chunk's last true position)."""
-    scratch, last_h = _chunk_body(cfg, params, scratch, emb_chunk, offset, true_len)
+    scratch, last_h = _chunk_body(cfg, params, scratch, emb_chunk, offset, true_len, mesh)
     cache, toks = _window_body(cfg, params, cache, last_toks, cur_lens, active, generator,
-                               sample_fn, n_steps=n_steps, eos_token=eos_token)
+                               sample_fn, n_steps=n_steps, eos_token=eos_token, mesh=mesh)
     return cache, toks, scratch, last_h
 
 
@@ -219,7 +232,10 @@ class LMServingEngine:
     keep the defaults samples with ``sample_token`` (greedy: the argmax);
     any override samples the window with ``sample_token_batched``.  The
     cache dtype comes from ``cfg.kv_cache_dtype``.  ``params`` live on
-    ``device`` (the GPU unless the caller asks for the CPU)."""
+    ``device`` (the GPU unless the caller asks for the CPU).  ``mesh``: a
+    process mesh with a "tp" axis that n_heads divides: tensor-parallel
+    serving (module docstring); ``params`` this rank's shards
+    (``sharding.shard_lm_params``)."""
 
     def __init__(
         self,
@@ -240,12 +256,17 @@ class LMServingEngine:
         seed: int = 0,
         pipeline_windows: bool = True,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"the serving engine was asked for {self.device}, but CUDA is "
                                "not available; pass device='cpu' to run on the CPU")
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if cfg.n_heads % mesh.size("tp"):
+                raise ValueError(f"n_heads {cfg.n_heads} not divisible by tp={mesh.size('tp')}")
         self.params = params
         if cache_classes is None:
             cache_classes = ((max_batch, max_len),)
@@ -267,7 +288,8 @@ class LMServingEngine:
         self._inflight: Optional[_InflightPrefill] = None
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._next_id = 0
-        self.groups = [_CacheGroup(cfg, b, ml, eos_token, self.device) for b, ml in self.classes]
+        self.groups = [_CacheGroup(cfg, b, ml, eos_token, self.device, mesh)
+                       for b, ml in self.classes]
         self.pending = collections.deque()
         self.finished: Dict[int, FinishedRequest] = {}
 
@@ -342,7 +364,7 @@ class LMServingEngine:
         token, mark the slot live."""
         g = self.groups[group_id]
         tok = _install_slot(self.cfg, self.params, g.cache, scratch, slot_id, last_h,
-                            self._gen, sampling, top_p_mode=self.top_p_mode)
+                            self._gen, sampling, top_p_mode=self.top_p_mode, mesh=self.mesh)
         g.cur_lens[slot_id] = s
         g.temps[slot_id], g.top_ks[slot_id], g.top_ps[slot_id] = sampling
         if self.pipeline_windows:
@@ -362,7 +384,8 @@ class LMServingEngine:
         C = self.prefill_chunk
         g = self.groups[group_id]
         # a whole number of chunks: the padded last chunk writes in range
-        scratch = gptj.init_kv_cache(self.cfg, 1, -(-g.max_len // C) * C, device=self.device)
+        scratch = gptj.init_kv_cache(self.cfg, 1, -(-g.max_len // C) * C, device=self.device,
+                                     mesh=self.mesh)
         self._inflight = _InflightPrefill(group_id, slot_id, req_id, embeds, embeds.shape[1],
                                           0, scratch, max_new, sampling)
         # the first chunk runs now, so admission progresses with no window
@@ -372,7 +395,8 @@ class LMServingEngine:
         """One chunk of the in-flight prefill as its own dispatch."""
         fl = self._inflight
         chunk, off, true_len = self._next_chunk()
-        fl.scratch, last_h = _chunk_body(self.cfg, self.params, fl.scratch, chunk, off, true_len)
+        fl.scratch, last_h = _chunk_body(self.cfg, self.params, fl.scratch, chunk, off, true_len,
+                                         mesh=self.mesh)
         self._finish_chunk(true_len, last_h, emitted)
 
     def _next_chunk(self):
@@ -416,7 +440,8 @@ class LMServingEngine:
                     if pad:
                         embeds = F.pad(embeds, (0, 0, 0, pad))
                     scratch, last_h = _prefill_full(self.cfg, self.params, embeds, s,
-                                                    scratch_len=self.groups[gi].max_len)
+                                                    scratch_len=self.groups[gi].max_len,
+                                                    mesh=self.mesh)
                     self._install(gi, slot, req_id, s, scratch, last_h, max_new, sampling,
                                   emitted)
                 made_progress = True
@@ -480,7 +505,7 @@ class LMServingEngine:
             sample_fn = _static_sampler(self.cfg, t, k, p, self.top_p_mode)
         args = (self.cfg, self.params, g.cache, last_toks, self._to_device(g.cur_lens),
                 self._to_device(active), self._gen, sample_fn)
-        kw = dict(n_steps=self.decode_window, eos_token=self.eos_token)
+        kw = dict(n_steps=self.decode_window, eos_token=self.eos_token, mesh=self.mesh)
         chunk_done = None
         if chunk_job is not None:
             chunk, off, true_len = chunk_job
@@ -602,11 +627,13 @@ class LMServingEngine:
 class MagmaServingEngine(LMServingEngine):
     """Continuous batching at the ``Magma`` level: requests are (image,
     text) prompts embedded by the vision tower and the ImagePrefix, results
-    decode to strings through the tokenizer.  Runs on the model's device."""
+    decode to strings through the tokenizer.  Runs on the model's device,
+    over the model's mesh unless ``mesh`` is given."""
 
     def __init__(self, model, **kwargs):
         kwargs.setdefault("eos_token", model.eos_token)
         kwargs.setdefault("device", model.device)
+        kwargs.setdefault("mesh", model.mesh)
         super().__init__(model.lm_config, model.params["lm"], **kwargs)
         self.model = model
 

@@ -6,8 +6,13 @@ split, the threaded loader, ``Trainer`` steps with the loss read only at
 ``log_every``, periodic eval (the eval loss, captions of eval images with
 their image grid, VQA/GQA accuracy over ``vqa_dir``/``gqa_dir``), periodic
 and final checkpoints, and resume from ``load``.  One process on one card
-(``--device``, default cuda; the CPU when asked for); ``--multihost``
-raises until multi-process training is ported (ROADMAP queue 1 item 5).
+(``--device``, default cuda; the CPU when asked for), or with
+``--multihost`` one process per rank under ``torchrun --nproc_per_node N``
+(``utils.init_distributed``: NCCL and ``cuda:LOCAL_RANK`` on the card,
+gloo with ``--device cpu``): the Trainer's mesh comes from the config's
+``mesh_dp``/``mesh_tp``/``mesh_sp``, each rank's loaders take its "dp"
+stride of every global batch (``batch_size / dp`` samples), and
+checkpoints, metrics and prints come from rank 0 only.
 
 Metrics go to ``metrics.jsonl`` in ``--log-dir`` (default ``config.save``,
 else the working directory), with the image grids as PNGs beside it; the
@@ -37,7 +42,7 @@ def parse_args(argv=None):
     parser.add_argument("--log-dir", type=str, default=None,
                         help="where metrics.jsonl goes (default: config.save, else .)")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-process training (not ported yet)")
+                        help="one process per rank, launched by torchrun")
     return parser.parse_args(argv)
 
 
@@ -123,8 +128,11 @@ def main(argv=None):
     args = parse_args(argv)
     from magma_tpu_torch.utils import init_distributed
 
+    device = args.device
     if args.multihost:
-        init_distributed()
+        local_rank, _, _ = init_distributed(device)
+        if device == "cuda":
+            device = f"cuda:{local_rank}"
 
     from magma_tpu_torch.config import MultimodalConfig
     from magma_tpu_torch.data.loader import BatchLoader
@@ -138,10 +146,12 @@ def main(argv=None):
     config = MultimodalConfig.from_yml(args.config)
     config.print()
 
-    model = Magma(config, seed=config.seed, device=args.device)
+    model = Magma(config, seed=config.seed, device=device)
     print_main(f"params: {count_parameters(model.params):,} "
                f"(trainable: {count_parameters(model.params, model.trainable_mask()):,})")
     trainer = Trainer(model, config)
+    # each rank loads its "dp" stride of every global batch
+    dp, dp_index = trainer.mesh.size("dp"), trainer.mesh.axis_index("dp")
 
     # the loader's workers take the host path: the native decoder when it
     # builds, else PIL and the CPU preprocess
@@ -150,14 +160,16 @@ def main(argv=None):
     print_main(f"data transforms: {type(transforms).__name__}")
     train_dataset, eval_dataset = get_pretraining_datasets(config, model.tokenizer, transforms,
                                                            model.seq_len)
-    train_loader = BatchLoader(train_dataset, config.batch_size,
+    train_loader = BatchLoader(train_dataset, config.batch_size // dp,
                                config.gradient_accumulation_steps, seq_len=model.seq_len,
                                num_workers=config.num_workers, seed=config.seed,
-                               device=model.device)
+                               device=model.device, shard=(dp_index, dp))
     eval_loader = BatchLoader(eval_dataset,
-                              max(config.batch_size // config.gradient_accumulation_steps, 1), 1,
+                              max(config.batch_size // config.gradient_accumulation_steps // dp,
+                                  1), 1,
                               seq_len=model.seq_len, num_workers=config.num_workers,
-                              seed=config.seed + 1, flat=True, device=model.device)
+                              seed=config.seed + 1, flat=True, device=model.device,
+                              shard=(dp_index, dp))
 
     global_step = 0
     if config.load:
@@ -227,4 +239,12 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    args = parse_args()
     main()
+    if args.multihost:
+        import torch.distributed as dist
+
+        # every rank past its last collective and write before any tears
+        # down: a gloo peer that closes first can abort the others' exit
+        dist.barrier()
+        dist.destroy_process_group()

@@ -50,26 +50,27 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) 
     return nll / torch.clamp(count, min=1)
 
 
-def _chunk_nll(cfg, lm_params, h_c, t_c):
+def _chunk_nll(cfg, lm_params, mesh, h_c, t_c):
     from magma_tpu_torch.models import gptj
 
-    return _nll(gptj.lm_head(cfg, lm_params, h_c), t_c, cfg.vocab_size)
+    return _nll(gptj.lm_head(cfg, lm_params, h_c, mesh), t_c, cfg.vocab_size)
 
 
-def causal_lm_loss_chunked(cfg, lm_params, hidden: torch.Tensor, labels: torch.Tensor,
-                           chunk_size: int = 256) -> torch.Tensor:
-    """The shifted cross entropy of ``causal_lm_loss`` over post-ln_f hidden
-    states (b, s, D), computed ``chunk_size`` positions at a time: each
-    chunk's logits are made, consumed and (under autograd) recomputed in the
-    backward, in chunk order as the JAX package's scan sums them."""
-    h, targets = hidden[:, :-1], labels[:, 1:]
+def chunked_nll(cfg, lm_params, h: torch.Tensor, targets: torch.Tensor, chunk_size: int = 256,
+                mesh=None):
+    """(sum of the NLL, count of valid positions) of post-ln_f hidden states
+    h (b, n, D) against their next-token ``targets`` (b, n), the head run
+    ``chunk_size`` positions at a time: each chunk's logits are made,
+    consumed and (under autograd) recomputed in the backward, in chunk
+    order as the JAX package's scan sums them.  ``mesh``: a vocab-sharded
+    head (``gptj.lm_head``)."""
     pad = (-h.shape[1]) % chunk_size
     if pad:
         h = F.pad(h, (0, 0, 0, pad))
         targets = F.pad(targets, (0, pad), value=IGNORE)
-    fn = functools.partial(_chunk_nll, cfg, lm_params)
-    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    count = torch.zeros((), dtype=torch.long, device=hidden.device)
+    fn = functools.partial(_chunk_nll, cfg, lm_params, mesh)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.long, device=h.device)
     for c in range(0, h.shape[1], chunk_size):
         h_c, t_c = h[:, c:c + chunk_size], targets[:, c:c + chunk_size]
         if torch.is_grad_enabled():
@@ -78,4 +79,13 @@ def causal_lm_loss_chunked(cfg, lm_params, hidden: torch.Tensor, labels: torch.T
             n, k = fn(h_c, t_c)
         nll = nll + n
         count = count + k
+    return nll, count
+
+
+def causal_lm_loss_chunked(cfg, lm_params, hidden: torch.Tensor, labels: torch.Tensor,
+                           chunk_size: int = 256) -> torch.Tensor:
+    """The shifted cross entropy of ``causal_lm_loss`` over post-ln_f hidden
+    states (b, s, D), through ``chunked_nll``: the full logits never
+    exist."""
+    nll, count = chunked_nll(cfg, lm_params, hidden[:, :-1], labels[:, 1:], chunk_size)
     return nll / torch.clamp(count, min=1)

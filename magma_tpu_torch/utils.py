@@ -42,12 +42,40 @@ def get_world_info() -> Tuple[int, int, int]:
     return int(os.environ.get("LOCAL_RANK", rank)), rank, torch.distributed.get_world_size()
 
 
-def init_distributed() -> Tuple[int, int, int]:
-    """Multi-process initialisation (magma/utils.py:262-269).  Not ported:
-    a multi-process run is ROADMAP queue 1 item 5 (parallelism)."""
-    raise NotImplementedError(
-        "multi-process training is not ported yet (ROADMAP queue 1 item 5, parallelism); "
-        "run one process")
+_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_distributed(device: str = "cuda") -> Tuple[int, int, int]:
+    """Multi-process initialisation (magma/utils.py:262-269; the JAX
+    package's ``utils.py:62-75``) from the environment ``torchrun`` sets:
+    ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``.  On the card the backend is NCCL and the rank's device
+    ``cuda:LOCAL_RANK`` (``torch.cuda.set_device``); ``device="cpu"`` takes
+    gloo.  Without that environment it answers for one process, as the JAX
+    package's does; an environment with only some of the variables raises.
+    Returns (local_rank, rank, world_size)."""
+    if _distributed():
+        return get_world_info()
+    have = [k for k in _ENV if k in os.environ]
+    if not have:
+        return 0, 0, 1
+    if len(have) < len(_ENV):
+        missing = [k for k in _ENV if k not in os.environ]
+        raise ValueError(f"torch.distributed environment half set: {missing} missing "
+                         f"(have {have}); launch with torchrun")
+    local_rank = int(os.environ["LOCAL_RANK"])
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed was asked for the card, but CUDA is not "
+                               "available; pass device='cpu' for gloo on the CPU")
+        torch.cuda.set_device(local_rank)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    torch.distributed.init_process_group(backend, init_method="env://",
+                                         rank=int(os.environ["RANK"]),
+                                         world_size=int(os.environ["WORLD_SIZE"]))
+    return get_world_info()
 
 
 def reduce_mean_across_hosts(x: torch.Tensor) -> torch.Tensor:

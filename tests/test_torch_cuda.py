@@ -1689,3 +1689,100 @@ def test_train_cli_two_steps_on_the_card(dev, tmp_path):
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert any("eval/loss" in m for m in log) and any("eval/vqa_accuracy" in m for m in log)
     assert (tmp_path / "ckpt" / "latest").read_text() == "step_2"
+
+
+# ---------------------------------------------------------------------------
+# Parallelism: the padded head shard, a ring step's merge, NCCL at world 1
+# ---------------------------------------------------------------------------
+
+
+def test_padded_head_shard_kernel_matches_plain(dev):
+    """K2a on the int8 head's tp 2 shard (50304 / 2 = 25152 columns, zero-
+    padded to 25216 by ``shard_lm_params``): the kernel takes it, its real
+    columns equal the plain version's, the padding gives 0."""
+    from magma_tpu_torch.parallel import sharding
+    from magma_tpu_torch.parallel.mesh import Mesh
+
+    r = np.random.default_rng(5)
+    wte = torch.from_numpy(r.standard_normal((50304, 512), dtype=np.float32) * 0.02)
+    head = quant.quantize_int8(wte.T.contiguous(), compiled=True)
+    mesh = Mesh(np.arange(2).reshape(1, 2), ("dp", "tp"), 1, [0, 1], {})
+    shard = sharding.shard_lm_params(mesh, {"lm_head_q": head})["lm_head_q"]
+    assert shard["q"].shape == (512, 25216) and not shard["q"][:, 25152:].any()
+    x = torch.from_numpy(r.standard_normal((3, 512), dtype=np.float32)).to(dev, torch.bfloat16)
+    q, s = shard["q"].to(dev), shard["s"].to(dev)
+    before = quant.int8_matmul_kernel.launches
+    got = quant.int8_matmul(x, q, s)
+    assert quant.int8_matmul_kernel.launches == before + 1
+    want = quant.int8_matmul_plain(x, q, s)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    assert not got[:, 25152:].any()
+
+
+def test_ring_step_merge_matches_flash(dev):
+    """Rank 1 of a ring of 2 in one process: its diagonal block (causal)
+    and its past block (unmasked) through K1, merged through their lse,
+    against K1 over the whole sequence (that rank's rows); then the
+    backward of both blocks through K9a/K9b under the merged O and lse
+    against the flash backward of the whole sequence with the other rank's
+    output gradient zero."""
+    from magma_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from magma_tpu_torch.parallel import ring_attention as ring
+
+    q, k, v = _qkv(dev, 1, 512, 512, 128, seed=3, h=2)
+    scale, half = 128 ** -0.5, 256
+    q1 = q[:, half:].contiguous()
+    k0, v0, k1, v1 = (t.contiguous() for t in (k[:, :half], v[:, :half], k[:, half:],
+                                                v[:, half:]))
+    o_d, lse_d = ring._step_fwd(q1, k1, v1, scale=scale, causal=True)
+    o_p, lse_p = ring._step_fwd(q1, k0, v0, scale=scale, causal=False)
+    o, lse = ring._merge(o_d.float(), lse_d, o_p, lse_p)
+    o = o.to(torch.bfloat16)
+    o_ref, lse_ref = flash_attention_fwd(q, k, v, scale=scale, causal=True)
+    assert ((o.float() - o_ref[:, half:].float()).abs()
+            <= O_ATOL + O_RTOL * o_ref[:, half:].float().abs()).all()
+    torch.testing.assert_close(lse, lse_ref[..., half:], atol=LSE_ATOL, rtol=0)
+
+    r = np.random.default_rng(4)
+    do = torch.from_numpy(r.standard_normal(tuple(q1.shape), dtype=np.float32)).to(
+        dev, torch.bfloat16)
+    lse = lse.contiguous()
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq_d, dk1, dv1 = ring._step_bwd(q1, k1, v1, o, lse, do, di, scale=scale, causal=True)
+    dq_p, dk0, dv0 = ring._step_bwd(q1, k0, v0, o, lse, do, di, scale=scale, causal=False)
+    do_full = torch.cat([torch.zeros_like(do), do], dim=1)
+    o_full = torch.cat([o_ref[:, :half], o], dim=1)
+    lse_full = torch.cat([lse_ref[..., :half], lse], dim=-1).contiguous()
+    dq, dk, dv = flash_attention_bwd(q, k, v, o_full, lse_full, do_full, scale=scale,
+                                     causal=True)
+    for got, want in ((dq_d.float() + dq_p.float(), dq[:, half:]),
+                      (torch.cat([dk0, dk1], 1), dk), (torch.cat([dv0, dv1], 1), dv)):
+        want = want.float()
+        assert (got.float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_init_distributed_nccl_at_world_1(dev, monkeypatch):
+    """torchrun's environment for one rank: NCCL on cuda:0, and a mesh whose
+    groups all_reduce a tensor on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from magma_tpu_torch.parallel.mesh import all_reduce, make_mesh
+    from magma_tpu_torch.utils import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, val in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, val)
+    assert init_distributed("cuda") == (0, 0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(1, 1, sp=1)
+        assert mesh.distributed and mesh.group(("dp", "tp")) is not None
+        t = torch.arange(4.0, device=dev)
+        assert torch.equal(all_reduce(t.clone(), mesh, "tp"), t)
+    finally:
+        dist.destroy_process_group()

@@ -213,15 +213,22 @@ def test_train_cli_runs_logs_saves_and_resumes(tmp_path):
     assert (ckpt / "latest").read_text() == "step_6"
 
 
-def test_train_cli_refuses_what_is_not_ported(tmp_path):
-    """--multihost raises until multi-process training is ported; the
-    default device is the card, which raises without CUDA; the module runs
-    as ``python -m magma_tpu_torch.train``."""
+def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """--multihost refuses a half-set torchrun environment (multi-process
+    runs are tests/test_torch_parallel_train.py's); the default device is
+    the card, which raises without CUDA; the module runs as ``python -m
+    magma_tpu_torch.train``."""
     from magma_tpu_torch import train
 
     yml = _cli_yml(tmp_path, 1, False)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train.main(["--config", yml, "--multihost"])
+    for k in ("LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="half set"):
+        train.main(["--config", yml, "--multihost", "--device", "cpu"])
+    monkeypatch.delenv("RANK")
+    monkeypatch.delenv("WORLD_SIZE")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["--config", yml])

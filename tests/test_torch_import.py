@@ -29,6 +29,8 @@ def test_imports_with_jax_blocked():
         "import magma_tpu_torch.data.loader, magma_tpu_torch.data.transforms\n"
         "import magma_tpu_torch.native, magma_tpu_torch.evaluation\n"
         "import magma_tpu_torch.observability\n"
+        "import magma_tpu_torch.parallel, magma_tpu_torch.parallel.ring_attention\n"
+        "import magma_tpu_torch.parallel.sp_decode, magma_tpu_torch.parallel.sharding\n"
         "assert not [m for m in sys.modules if m == 'magma_tpu' or m.startswith('magma_tpu.')]\n"
         "print('ok')\n"
     )
