@@ -21,12 +21,15 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    (median of CUDA events).
 2b. The int8 kernels against their plain versions on seeded bf16/int8
    inputs at the slice's shapes: K2b (in_proj) at M = 1, 5, 37, 192, 256,
-   2048 and on the QLoRA layout's o and fc_out at M = 2048, K4a (o_proj +
-   fc_out) at M = 1, 192, K5 (the adapter) at M = 1, 8, 16 (the serving
-   engine's pools), 64 (the same bits on a repeat), K2a (the head) at
-   M = 1 and at path B's 256-position loss chunk; each timed with its plain
-   version and a bf16 ``torch.matmul`` over weights dequantised outside
-   the timed call, and every M > 8 result the same bits on a repeat.
+   2048, on the QLoRA layout's o and fc_out at M = 2048 and on the int8
+   adapter mode's products (v2's 4096 -> 512 -> 4096, v1's 4096 -> 1024 ->
+   4096) at M = 1, 192, K4a (o_proj + fc_out) at M = 1, 192, K5 (the
+   adapter) at M = 1, 8, 16 (the serving engine's pools), 64 (the same bits
+   on a repeat) over v1's hidden 1024 and at M = 1, 8, 64 over v2's 512,
+   K2a (the head) at M = 1 and at path B's 256-position loss chunk; each
+   timed with its plain version and a bf16 ``torch.matmul`` over weights
+   dequantised outside the timed call, and every M > 8 result the same
+   bits on a repeat.
    Timed calls cycle through the layers of a stack larger than the 50 MB
    L2, as decode reads each layer's weights once per token.
 3. The bf16 caption path at full width: ``Magma`` from configs/MAGMA_v1.yml
@@ -193,7 +196,29 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    arithmetic (``_loss_in_shares``), with the distance of that arithmetic
    from the whole batch's printed beside; (d) its loss and gradients
    against the flash path; the ranks' replicas equal.
-Each of phases 10-13 prints its time; ``--only 10,11,12,13`` runs just
+14. MAGMA_v2 and the last modules: ``Magma`` from configs/MAGMA_v2.yml
+   (GPT-J 6B with normal mlp and attention adapters, both at k=8: hidden
+   512; RN50x16 at 384 px), bf16 weights from a seed on the card, the
+   adapters moved off their near-zero init so that every bound below can
+   see them: (a) phase 3's three requests, K1 once a layer a prefill; (b)
+   ``save_checkpoint`` of the bf16 params and state under build/, then
+   ``Magma.from_checkpoint`` of that directory: every tensor bit-equal
+   (checksums on the card), the greedy tokens equal to (a)'s, bytes and
+   seconds printed, the directory deleted; (c) ``quantize_for_serving(8)``
+   and the three requests with exact launches (a decode step: layer 0's
+   in_proj on K2b, one K8, whose attention adapter is fed from its
+   branch's output, the head on K2a), the prefill logits against the bf16
+   path over the dequantised packs, and phase 5b's decode-step agreement
+   (K5 twice a layer in the chain), with its controls: K8 with an adapter
+   zeroed or the attention adapter fed from "in" must fail it, and the
+   prefill reference without an adapter must move past the logit bound;
+   (d) a fresh model, the int8 adapter mode
+   (``quantize_lm_params(fuse_out_proj=False)``, then
+   ``_serving_cast_adapters(mode="int8")``) and the three requests with
+   exact launches (7 K2b products a layer a forward, the adapters' four
+   among them, the head on K2a; no K5, K6 or K8), its prefill logits
+   against its dequantised bf16 path, a decode step profiled.
+Each of phases 10-14 prints its time; ``--only 10,11,12,13,14`` runs just
 those after the build (a partial run, without the last two lines).
 
 No b = 1 serving prefill of phases 3-7 may run K1's wgmma body: on it
@@ -667,42 +692,73 @@ def phase_int8_kernels(torch):
                ok, tm if m == 1 else None)
     del wq, s, lib_o, lib_f
 
-    # K5: the v1 adapter (D=4096, DH=1024) of all 28 layers (235 MB) cycled
+    # K2b on the int8 adapter mode's products (the adapters' down and up of
+    # v2, hidden 512, and of v1, hidden 1024), 28 layers (59 or 117 MB) cycled
     L = 28
-    fz = {"wd": int8(L, D, DH), "sd": scales(L, 1, DH), "bd": scales(L, 1, DH) * 100,
-          "wu": int8(L, DH, D), "su": scales(L, 1, D), "bu": scales(L, 1, D) * 100}
-    lib_d = [deq(fz["wd"][i], fz["sd"][i, 0]) for i in range(L)]
-    lib_u = [deq(fz["wu"][i], fz["su"][i, 0]) for i in range(L)]
-    lib_b = [(fz["bd"][i, 0].to(torch.bfloat16), fz["bu"][i, 0].to(torch.bfloat16))
-             for i in range(L)]
-    for m in (1, 8, 16, 64):  # decode; the engine's 8- and 16-slot pools; the top of K5
-        x = bf16(m, D)
-        out = quant.fused_adapter_stacked(x, fz, 5)
-        ref = quant.fused_adapter_stacked_plain(x, fz, 5)
-        torch.cuda.synchronize()
-        # h is rounded to bf16 in both: an h on a rounding boundary can land
-        # one bf16 ulp (2^-8 relative) apart and move out by 2^-8 |h| |Wu| su
-        hh = torch.relu(quant.int8_matmul_plain(x, fz["wd"][5], fz["sd"][5, 0]) + fz["bd"][5, 0])
-        up = (hh.abs() @ fz["wu"][5].float().abs()) * fz["su"][5, 0]
-        err = (out - ref).abs()
-        ok = bool((err <= 2.0 ** -8 * up + _sum_tol(hh, fz["wu"][5], fz["su"][5, 0], DH)
-                   + 1e-6).all())
-        it = itertools.cycle(range(L))
+    for label, (k_, n_) in (("v2 adapter down", (D, 512)), ("v2 adapter up", (512, D)),
+                            ("v1 adapter down", (D, DH)), ("v1 adapter up", (DH, D))):
+        wq, s = int8(L, k_, n_), scales(L, n_)
+        w_lib = [deq(wq[i], s[i]) for i in range(L)]
+        for m in (1, 192):
+            x = bf16(m, k_)
+            out = quant.int8_matmul_stacked(x, wq, s, 1)
+            ref = quant.int8_matmul_stacked_plain(x, wq, s, 1)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            check(torch.equal(out, quant.int8_matmul_stacked(x, wq, s, 1)),
+                  f"K2b {label} M={m}: another result on a repeat")
+            it = itertools.cycle(range(L))
+            timing(f"K2b {label}", m, lambda: quant.int8_matmul_stacked(x, wq, s, next(it)),
+                   lambda: quant.int8_matmul_stacked_plain(x, wq, s, next(it)),
+                   lambda: torch.matmul(x, w_lib[next(it)]),
+                   nbytes(x, wq[0], s[0]) + m * n_ * 4, 2 * m * k_ * n_,
+                   "gemv_kernel" if m <= 8 else "int8_wgmma_tile_kernel")
+            report("int8_matmul_stacked_kernel", f"K2b {label}", m, err.max().item(),
+                   bool((err <= _sum_tol(x, wq[1], s[1], k_)).all()))
+        del wq, s, w_lib
 
-        def library():
-            i = next(it)
-            return torch.relu(x @ lib_d[i] + lib_b[i][0]) @ lib_u[i] + lib_b[i][1]
+    # K5: the v1 adapter (D=4096, DH=1024) and v2's (DH=512) of all 28
+    # layers (235 or 117 MB) cycled
+    for dh, rows in ((DH, (1, 8, 16, 64)), (512, (1, 8, 64))):
+        fz = {"wd": int8(L, D, dh), "sd": scales(L, 1, dh), "bd": scales(L, 1, dh) * 100,
+              "wu": int8(L, dh, D), "su": scales(L, 1, D), "bu": scales(L, 1, D) * 100}
+        lib_d = [deq(fz["wd"][i], fz["sd"][i, 0]) for i in range(L)]
+        lib_u = [deq(fz["wu"][i], fz["su"][i, 0]) for i in range(L)]
+        lib_b = [(fz["bd"][i, 0].to(torch.bfloat16), fz["bu"][i, 0].to(torch.bfloat16))
+                 for i in range(L)]
+        # decode; the engine's 8- and 16-slot pools; the top of K5
+        for m in rows:
+            x = bf16(m, D)
+            out = quant.fused_adapter_stacked(x, fz, 5)
+            ref = quant.fused_adapter_stacked_plain(x, fz, 5)
+            torch.cuda.synchronize()
+            # h is rounded to bf16 in both: an h on a rounding boundary can
+            # land one bf16 ulp (2^-8 relative) apart and move out by
+            # 2^-8 |h| |Wu| su
+            hh = torch.relu(quant.int8_matmul_plain(x, fz["wd"][5], fz["sd"][5, 0])
+                            + fz["bd"][5, 0])
+            up = (hh.abs() @ fz["wu"][5].float().abs()) * fz["su"][5, 0]
+            err = (out - ref).abs()
+            ok = bool((err <= 2.0 ** -8 * up + _sum_tol(hh, fz["wu"][5], fz["su"][5, 0], dh)
+                       + 1e-6).all())
+            it = itertools.cycle(range(L))
 
-        tm = timing("K5 adapter", m, lambda: quant.fused_adapter_stacked(x, fz, next(it)),
-                    lambda: quant.fused_adapter_stacked_plain(x, fz, next(it)), library,
-                    nbytes(x, fz["wd"][0], fz["wu"][0]) + 4 * (2 * DH + 2 * D) + m * D * 4,
-                    2 * m * 2 * D * DH, "fused_adapter_kernel")
-        check(torch.equal(out, quant.fused_adapter_stacked(x, fz, 5)),
-              f"K5 M={m}: another result on a repeat")
-        # the JSON line carries the main path's case: the engine's 8-row pool
-        report("fused_adapter_kernel", "K5 adapter", m, err.max().item(), ok,
-               tm if m == 8 else None)
-    del fz, lib_d, lib_u, lib_b
+            def library():
+                i = next(it)
+                return torch.relu(x @ lib_d[i] + lib_b[i][0]) @ lib_u[i] + lib_b[i][1]
+
+            label = "K5 adapter" if dh == DH else f"K5 adapter DH={dh}"
+            tm = timing(label, m, lambda: quant.fused_adapter_stacked(x, fz, next(it)),
+                        lambda: quant.fused_adapter_stacked_plain(x, fz, next(it)), library,
+                        nbytes(x, fz["wd"][0], fz["wu"][0]) + 4 * (2 * dh + 2 * D) + m * D * 4,
+                        2 * m * 2 * D * dh, "fused_adapter_kernel")
+            check(torch.equal(out, quant.fused_adapter_stacked(x, fz, 5)),
+                  f"{label} M={m}: another result on a repeat")
+            # the JSON line carries the main path's case: the engine's 8-row
+            # pool over v1's adapter
+            report("fused_adapter_kernel", label, m, err.max().item(), ok,
+                   tm if (m, dh) == (8, DH) else None)
+        del fz, lib_d, lib_u, lib_b
 
     # K2a: the untied head, decode's M=1 and path B's 256-position loss
     # chunk; 206 MB, larger than L2 by itself
@@ -1523,7 +1579,9 @@ def _dequantised_lm(torch, lm, cfg):
     """The bf16 LM of the unquantized layout made from the int8 packs
     (W s per layer) or the int4 ones (``dequantize_int4``), its head
     ``lm_head_q`` a bf16 (D, V) tensor, which ``gptj.lm_head`` multiplies in
-    fp32; embeddings keep ``wte``."""
+    fp32; embeddings keep ``wte``.  The packs are the serving layout's
+    (fused in_proj and out_proj, fused adapters) or the int8 adapter
+    mode's (o and fc_out apart, each adapter's kernels a pack)."""
     from magma_tpu_torch.ops.quant import dequantize_int4
 
     D = cfg.d_model
@@ -1536,8 +1594,12 @@ def _dequantised_lm(torch, lm, cfg):
         return torch.stack([dequantize_int4(q4[i], s4[i]).to(torch.bfloat16)
                             for i in range(q4.shape[0])])
 
-    ip, op = blocks["attn"]["in_proj"], blocks["attn"]["out_proj"]
-    if "q4" in ip:
+    ip, op = blocks["attn"]["in_proj"], blocks["attn"].get("out_proj")
+    if op is None:
+        w_in = deq(ip["q"], ip["s"])
+        w_o = deq(blocks["attn"]["o"]["q"], blocks["attn"]["o"]["s"])
+        w_f = deq(blocks["mlp"]["fc_out"]["kernel"]["q"], blocks["mlp"]["fc_out"]["kernel"]["s"])
+    elif "q4" in ip:
         w_in = deq4(ip["q4"], ip["s4"])
         w_o = deq4(op["q4"][:, :D // 2], op["s4"][:, :D // 256])
         w_f = deq4(op["q4"][:, D // 2:], op["s4"][:, D // 256:])
@@ -1555,11 +1617,18 @@ def _dequantised_lm(torch, lm, cfg):
                "fc_out": {"kernel": w_f,
                           "bias": blocks["mlp"]["fc_out"]["bias"]}}}}
     for key in ("adapter_mlp", "adapter_attn"):
-        if key in blocks:
+        if key in blocks and "fused" in blocks[key]:
             fz = blocks[key]["fused"]
             out["blocks"][key] = {
                 "down": {"kernel": deq(fz["wd"], fz["sd"][:, 0]), "bias": fz["bd"][:, 0]},
                 "up": {"kernel": deq(fz["wu"], fz["su"][:, 0]), "bias": fz["bu"][:, 0]}}
+        elif key in blocks:  # the int8 adapter mode: packs, bf16 biases, LN and scale
+            ad = dict(blocks[key])
+            for proj in ("down", "up"):
+                w = ad[proj]["kernel"]
+                ad[proj] = {"kernel": deq(w["q"], w["s"]) if isinstance(w, dict) else w,
+                            "bias": ad[proj]["bias"]}
+            out["blocks"][key] = ad
     return out
 
 
@@ -1576,10 +1645,10 @@ def _all_wrappers():
     return wrappers
 
 
-def _want_launches(bits, L, steps, rows):
+def _want_launches(bits, L, steps, rows, adapters=1):
     """Exact launches of one request of ``steps`` tokens (1 prefill of
-    ``rows`` padded positions + steps-1 decode forwards) on the v1 recipe,
-    by wrapper."""
+    ``rows`` padded positions + steps-1 decode forwards) over fused
+    adapters (``adapters`` a layer: 1 in v1, 2 in v2), by wrapper."""
     from magma_tpu_torch.ops.quant import FUSED_ADAPTER_MAX_ROWS
 
     if bits == 8:
@@ -1592,7 +1661,7 @@ def _want_launches(bits, L, steps, rows):
         want = {"int4_matmul_stacked_kernel": L + steps - 1, "int4_dual_kernel": L,
                 "int8_matmul_kernel": steps}
     # the prefill's adapter: K5 up to 64 rows, else the dequantising matmul
-    want["fused_adapter_kernel"] = L if rows <= FUSED_ADAPTER_MAX_ROWS else 0
+    want["fused_adapter_kernel"] = adapters * L if rows <= FUSED_ADAPTER_MAX_ROWS else 0
     want["decode_all_layers_kernel"] = steps - 1
     want["flash_attention_kernel"] = L
     return {k: want.get(k, 0) for k in _all_wrappers()}
@@ -1644,11 +1713,13 @@ def phase_quantized(torch, model, bits):
     return launches, emb, tokens
 
 
-def _requests_with_launches(torch, model, bits, tag):
+def _requests_with_launches(torch, model, bits, tag, want_fn=None):
     """The three requests, each with exact launches of every kernel, counts
-    set to 0 just before.  Returns (launches by wrapper, (greedy request's
-    embeddings, tokens))."""
+    set to 0 just before (``want_fn(steps, rows)`` the expected launches,
+    default ``_want_launches``).  Returns (launches by wrapper, (greedy
+    request's embeddings, tokens))."""
     L = model.lm_config.n_layers
+    want_fn = want_fn or functools.partial(_want_launches, bits, L)
     wrappers = _all_wrappers()
     for fn in wrappers.values():
         fn.launches = 0  # count this path only
@@ -1657,7 +1728,7 @@ def _requests_with_launches(torch, model, bits, tag):
         before = {k: fn.launches for k, fn in wrappers.items()}
         emb, tokens, steps = _run_request(torch, model, i, name, kw, tag)
         got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
-        want = _want_launches(bits, L, steps, emb.shape[1] + (-emb.shape[1]) % 64)
+        want = want_fn(steps, emb.shape[1] + (-emb.shape[1]) % 64)
         print(f"[{tag}]   launches {got}")
         check(got == want, f"{tag} request {i}: launches {got}, expected {want}")
         if greedy is None:
@@ -1676,6 +1747,10 @@ def phase_int4(torch):
     torch.cuda.synchronize()
     print(f"[int4] Magma({CONFIG.name}) rebuilt from seed 0 in {time.perf_counter() - t0:.1f} s")
     return (model, *phase_quantized(torch, model, 4))
+
+
+def _n_adapters(cfg):
+    return sum(spec is not None for spec in (cfg.mlp_adapter, cfg.attn_adapter))
 
 
 def _prefilled_cache(torch, cfg, lm, emb):
@@ -1816,8 +1891,10 @@ def phase_decode_agreement(torch, model, emb, tokens, tag):
         print(f"[{tag} agreement] {kv} cache: launches {got}")
         k_b8 = "boundary_kernel" if "q4" in lm["blocks"]["attn"]["in_proj"] else \
             "fused_adapter_kernel"
+        # K6 once a layer; K5 once a layer for each adapter
+        n_b8 = L if k_b8 == "boundary_kernel" else L * _n_adapters(cfg0)
         check(got["decode_all_layers_kernel"] == 1 and got["decode_layer_kernel"] == L
-              and got[k_b8] == L, f"{tag} agreement: launches {got}")
+              and got[k_b8] == n_b8, f"{tag} agreement: launches {got}")
         _, lb, cb = steps["b <= 8"]
         leaves_b, values_b = _new_entries(cb, idx)
         measured = {}
@@ -4000,6 +4077,281 @@ def phase_parallel(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: MAGMA_v2 (attention adapters at k=8) and the last modules
+# ---------------------------------------------------------------------------
+
+CONFIG_V2 = ROOT / "configs" / "MAGMA_v2.yml"
+V2_CKPT_DIR = ROOT / "build" / "smoke_v2_ckpt"
+# not 0: ``Magma.from_checkpoint`` builds its template from seed 0, so a
+# restore that copied nothing would leave other weights
+V2_SEED = 1
+# the seeded draws added to every adapter leaf (the CUDA tests' adapter
+# std): at their N(0, 1e-3) init each adapter's output is ~1e-3 of its
+# branch's, under every bound of this phase, so a kernel that skipped an
+# adapter stage or fed it from the wrong source would pass; with the draws
+# each is a few times its branch's
+V2_ADAPTER_STD = 0.05
+
+
+def _v2_model(torch, dev):
+    """MAGMA_v2 from ``V2_SEED`` on the card, every adapter leaf moved off
+    its init by seeded N(0, ``V2_ADAPTER_STD``) draws."""
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.utils import tree_items
+
+    model = Magma(CONFIG_V2, seed=V2_SEED, device=dev)
+    g = torch.Generator(device=dev).manual_seed(V2_SEED)
+    blocks = model.params["lm"]["blocks"]
+    with torch.no_grad():
+        for key in ("adapter_mlp", "adapter_attn"):
+            for _, t in tree_items(blocks[key]):
+                t.copy_(t.float() + torch.randn(t.shape, generator=g, device=dev) * V2_ADAPTER_STD)
+    return model
+
+
+def _v2_int8_adapter_want(L, packs, steps, rows):
+    """Exact launches of one request over the int8 adapter mode's layout
+    (``quantize_lm_params(fuse_out_proj=False)`` + ``_serving_cast_adapters
+    (mode="int8")``): every forward, the prefill and each decode step
+    alike, runs the per-layer chain, ``packs`` K2b products a layer, and
+    the head on K2a; the prompt's K1 once a layer; nothing else."""
+    del rows  # every forward takes the same products
+    want = {"int8_matmul_stacked_kernel": steps * L * packs, "int8_matmul_kernel": steps,
+            "flash_attention_kernel": L}
+    return {k: want.get(k, 0) for k in _all_wrappers()}
+
+
+def _layer_packs(blocks):
+    """The stacked int8 {"q", "s"} packs of the blocks, by path: each is one
+    K2b launch a layer a forward."""
+    found = []
+
+    def walk(tree, path):
+        if isinstance(tree, dict) and {"q", "s"} <= tree.keys():
+            found.append("/".join(path))
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+
+    walk(blocks, ())
+    return found
+
+
+def _prefill_logits_vs_dequantised(torch, tag, model, emb):
+    """The greedy prompt's last-position prefill logits through the kernels
+    against the bf16 path over the dequantised packs (phase 5's bound).
+    Then the control: that reference without each adapter in turn must be
+    farther from it than the bound and the measured difference together,
+    so a path that skipped the adapter could not have passed."""
+    lm = model.lm_config
+    ref_lm = _dequantised_lm(torch, model.params["lm"], lm)
+    got = _prefill_last_logits(torch, lm, model.params["lm"], emb)
+    ref = _prefill_last_logits(torch, lm, ref_lm, emb)
+    V = lm.vocab_size
+    diff = (got - ref)[:V].abs().max().item()
+    print(f"[{tag}] last-position prefill logits (fp32) vs the bf16 path over the dequantised "
+          f"packs: max|diff| {diff:.4e} (tol {INT8_LOGIT_TOL}; logit std {ref.std().item():.3f}), "
+          f"argmax equal: {int(got.argmax()) == int(ref.argmax())}")
+    check(torch.isfinite(got).all().item(), f"{tag}: non-finite prefill logits")
+    check(diff <= INT8_LOGIT_TOL, f"{tag}: prefill logits differ by {diff} > {INT8_LOGIT_TOL}")
+    for name in ("attn_adapter", "mlp_adapter"):
+        off = _prefill_last_logits(torch, dataclasses.replace(lm, **{name: None}), ref_lm, emb)
+        moved = (off - ref)[:V].abs().max().item()
+        print(f"[{tag}] control: the reference without its {name} moves by max|diff| "
+              f"{moved:.4e} (must exceed tol + the measured difference, "
+              f"{INT8_LOGIT_TOL + diff:.4e})")
+        check(moved > INT8_LOGIT_TOL + diff,
+              f"{tag}: the prefill check cannot see the {name} ({moved})")
+
+
+def _v2_checkpoint(torch, model, emb, tokens):
+    """(b): ``save_checkpoint`` of the bf16 params and state into build/,
+    ``Magma.from_checkpoint`` of that directory on the card: every tensor
+    bit-equal (checksums on the card) and the greedy request's tokens equal
+    to (a)'s; bytes written and seconds to save and to restore printed; the
+    directory deleted."""
+    import shutil
+
+    from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch.training.checkpoint import save_checkpoint
+    from magma_tpu_torch.utils import tree_items
+
+    shutil.rmtree(V2_CKPT_DIR, ignore_errors=True)
+    V2_CKPT_DIR.parent.mkdir(parents=True, exist_ok=True)
+    print(f"[v2 ckpt] {shutil.disk_usage(V2_CKPT_DIR.parent).free / 1e9:.1f} GB free under "
+          f"{V2_CKPT_DIR.parent}")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_dir = Path(save_checkpoint(str(V2_CKPT_DIR), 0, model.params, model.state))
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        t0 = time.perf_counter()
+        restored = Magma.from_checkpoint(CONFIG_V2, V2_CKPT_DIR, device=torch.device("cuda"))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        print(f"[v2 ckpt] saved {n_bytes / 1e9:.3f} GB in {save_s:.2f} s, restored from the save "
+              f"root in {restore_s:.2f} s (host clock, the file warm in the page cache)")
+        for name in ("params", "state"):
+            want = dict(tree_items(getattr(model, name)))
+            got = dict(tree_items(getattr(restored, name)))
+            check(got.keys() == want.keys(), f"v2 ckpt: the restored {name} differ in keys")
+            same = _checksums(torch, got.values()) == _checksums(torch, want.values()) and all(
+                got[k].dtype == t.dtype and got[k].device == t.device for k, t in want.items())
+            print(f"[v2 ckpt] {name}: {len(got)} tensors, checksums, dtypes and devices equal: "
+                  f"{same}")
+            check(same, f"v2 ckpt: the restored {name} are not bit-equal")
+        again = restored.generate(emb, max_steps=MAX_STEPS, temperature=0.0, decode=False)
+        same = bool((again == tokens).all())
+        print(f"[v2 ckpt] greedy tokens after the restore equal (a)'s: {same}")
+        check(same, "v2 ckpt: the restored model's greedy tokens differ")
+        del restored
+    finally:
+        shutil.rmtree(V2_CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _v2_decode_controls(torch, model, emb, tokens, tag):
+    """The control of (c)'s agreement: one decode step on the greedy
+    request's prefilled bf16 cache through K8 with its adapter arguments
+    wired wrong (the attention adapter's output zeroed, the attention
+    adapter fed from "in", the mlp adapter's output zeroed) must fail the
+    agreement with the b <= 8 path that phase 5b holds K8 to.  These K8
+    launches are not the main path's and are not counted."""
+    from magma_tpu_torch.models import gptj
+
+    cfg, lm = model.lm_config, model.params["lm"]
+    blocks = lm["blocks"]
+    dev = emb.device
+    x = gptj.embed_tokens(cfg, lm, torch.as_tensor(tokens[:, :1], device=dev))
+    idx = torch.full((1,), emb.shape[1], dtype=torch.int32, device=dev)
+    cache = _prefilled_cache(torch, cfg, lm, emb)
+
+    def logits(step):
+        hid, _, _ = step({k: t.clone() for k, t in cache.items()})
+        return gptj.lm_head(cfg, lm, gptj._layer_norm(hid, lm["ln_f"], cfg.ln_eps,
+                                                      cfg.compute_dtype))[0, -1]
+
+    def zeroed(key):
+        fz = blocks[key]["fused"]
+        out = {**fz, "su": torch.zeros_like(fz["su"]), "bu": torch.zeros_like(fz["bu"])}
+        return {**blocks, key: {**blocks[key], "fused": out}}
+
+    def from_in(c, b):
+        entry = gptj._fused_adapter_kwargs
+        gptj._fused_adapter_kwargs = lambda *a: dict(entry(*a), attn_src="in")
+        try:
+            return gptj._run_decode_fused_layers(cfg, b, x, idx.reshape(1, 1), c, idx)
+        finally:
+            gptj._fused_adapter_kwargs = entry
+
+    ref = logits(lambda c: _step_without_k8(torch, cfg, lm, x, c, idx))
+    for what, step in (
+            ("the attention adapter's output zeroed",
+             lambda c: gptj._run_decode_fused_layers(cfg, zeroed("adapter_attn"), x,
+                                                     idx.reshape(1, 1), c, idx)),
+            ('the attention adapter fed from "in"', lambda c: from_in(c, blocks)),
+            ("the mlp adapter's output zeroed",
+             lambda c: gptj._run_decode_fused_layers(cfg, zeroed("adapter_mlp"), x,
+                                                     idx.reshape(1, 1), c, idx))):
+        rel = _rel(logits(step), ref)
+        print(f"[{tag} control] K8 with {what} vs the b <= 8 path: logits rel {rel:.3e} "
+              f"(must exceed {PATH_REL_TOL})")
+        check(rel > PATH_REL_TOL, f"{tag}: the agreement cannot see K8 run with {what}")
+    del cache
+
+
+def phase_v2(torch):
+    """Phase 14: MAGMA_v2 at full width, (a) bf16, (b) the checkpoint round
+    trip, (c) int8 serving over fused adapters with the decode-step
+    agreement, (d) the int8 adapter mode.  Returns the launches by wrapper
+    over the phase."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+    dev = torch.device("cuda")
+    wrappers = _all_wrappers()
+    total = dict.fromkeys(wrappers, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    wgmma0 = flash_attention_kernel.wgmma_launches
+    t0 = time.perf_counter()
+    model = _v2_model(torch, dev)
+    torch.cuda.synchronize()
+    lm = model.lm_config
+    L = lm.n_layers
+    hidden = {tag: lm.d_model // spec.downsample_factor
+              for tag, spec in (("mlp", lm.mlp_adapter), ("attention", lm.attn_adapter))}
+    print(f"[v2] Magma({CONFIG_V2.name}) in {time.perf_counter() - t0:.1f} s: {L} layers, d_model "
+          f"{lm.d_model}, adapters {lm.mlp_adapter} (hidden {hidden['mlp']}) and "
+          f"{lm.attn_adapter} (hidden {hidden['attention']}), LM weights "
+          f"{nbytes(*_leaves(model.params['lm'])) / 1e9:.2f} GB ({lm.param_dtype}), tower "
+          f"{model.config.encoder_name} at {model.config.image_size} px")
+    check(lm.attn_adapter is not None and lm.attn_adapter.adapter_type == "normal"
+          and hidden == {"mlp": 512, "attention": 512}, "v2: expected two normal adapters at 512")
+
+    # (a) bf16: K1 once a layer a prefill, nothing else
+    launches, (emb, tokens) = _requests_with_launches(
+        torch, model, None, "v2 bf16",
+        lambda steps, rows: {k: L if k == "flash_attention_kernel" else 0 for k in wrappers})
+    add(launches)
+
+    # (b) the checkpoint round trip (the restored model's greedy request is
+    # not counted: (c) sets the counts to 0 first)
+    _v2_checkpoint(torch, model, emb, tokens)
+
+    # (c) int8 serving: fused adapters, K8 a decode step
+    t0 = time.perf_counter()
+    model.quantize_for_serving(8)
+    torch.cuda.synchronize()
+    blocks = model.params["lm"]["blocks"]
+    check(all("fused" in blocks[k] for k in ("adapter_mlp", "adapter_attn")),
+          "v2 int8: an adapter was not fused")
+    print(f"[v2 int8] quantize_for_serving(8) in {time.perf_counter() - t0:.1f} s: LM "
+          f"{nbytes(*_leaves(model.params['lm'])) / 1e9:.2f} GB")
+    launches, (emb8, tokens8) = _requests_with_launches(
+        torch, model, 8, "v2 int8", functools.partial(_want_launches, 8, L, adapters=2))
+    add(launches)
+    _prefill_logits_vs_dequantised(torch, "v2 int8", model, emb8)
+    add(phase_decode_agreement(torch, model, emb8, tokens8, "v2 int8"))
+    _v2_decode_controls(torch, model, emb8, tokens8, "v2 int8")
+    profile_decode_step(torch, model, emb8, "v2 int8")
+    del model, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the int8 adapter mode on a fresh model from the same seed
+    t0 = time.perf_counter()
+    model = _v2_model(torch, dev)
+    model.params["lm"] = gptj._serving_cast_adapters(
+        gptj.quantize_lm_params(model.params["lm"], fuse_out_proj=False), mode="int8")
+    torch.cuda.synchronize()
+    packs = _layer_packs(model.params["lm"]["blocks"])
+    print(f"[v2 int8 adapters] rebuilt from seed {V2_SEED} (adapters moved as in (a)), "
+          f"quantize_lm_params(fuse_out_proj=False) and the int8 adapter cast in "
+          f"{time.perf_counter() - t0:.1f} s: LM "
+          f"{nbytes(*_leaves(model.params['lm'])) / 1e9:.2f} GB; K2b a layer a forward: "
+          f"{len(packs)} ({', '.join(packs)}), the head on K2a")
+    check(len(packs) == 3 + 2 * 2, f"v2 int8 adapters: {len(packs)} packs a layer, expected 7")
+    launches, (emb_d, _) = _requests_with_launches(
+        torch, model, 8, "v2 int8 adapters",
+        functools.partial(_v2_int8_adapter_want, L, len(packs)))
+    add(launches)
+    _prefill_logits_vs_dequantised(torch, "v2 int8 adapters", model, emb_d)
+    profile_decode_step(torch, model, emb_d, "v2 int8 adapters")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(flash_attention_kernel.wgmma_launches == wgmma0,
+          "v2: a b = 1 serving prefill ran K1's wgmma body")
+    return total
+
+
 def _timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4014,8 +4366,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", default=None,
-                        help="run only these of phases 10,11,12,13 after the build (a partial "
-                             "run: it prints neither the kernels' line nor the ok line)")
+                        help="run only these of phases 10,11,12,13,14 after the build (a "
+                             "partial run: it prints neither the kernels' line nor the ok line)")
     args = parser.parse_args(argv)
     import torch
 
@@ -4027,7 +4379,8 @@ def main(argv=None) -> int:
     smi = phase_device(torch)
     phase_build()
     later = {"10": ("towers", phase_towers), "11": ("cli", phase_cli),
-             "12": ("classifier", phase_classifier), "13": ("parallel", phase_parallel)}
+             "12": ("classifier", phase_classifier), "13": ("parallel", phase_parallel),
+             "14": ("v2", phase_v2)}
     if args.only is not None:
         for phase in args.only.split(","):
             _timed(later[phase][0], later[phase][1], torch)

@@ -17,20 +17,29 @@ threaded loader and the CLI (``python -m magma_tpu_torch.train --config
 ...``), with evaluation (eval loss, captions, VQA) and classification
 fine-tuning (``MagmaClassifier``).  Every image tower of the JAX package
 is ported: the CLIP ResNets, the CLIP ViT-B/32 (the default) and
-NF-ResNet50.
+NF-ResNet50.  Parallelism runs over ``torch.distributed`` (``make_mesh``),
+checkpoints restore from a directory (``Magma.from_checkpoint``), and
+``python -m magma_tpu_torch.convert`` converts a reference checkpoint.
 """
 
 from magma_tpu_torch.config import MultimodalConfig, load_config
 from magma_tpu_torch.tokenizer import get_tokenizer
-from magma_tpu_torch.utils import is_main
+from magma_tpu_torch.utils import count_parameters, cycle, is_main, print_main
 
 __version__ = "0.1.0"
 
 _LAZY = {
     "Magma": ("magma_tpu_torch.models.magma", "Magma"),
     "MagmaClassifier": ("magma_tpu_torch.models.classifier", "MagmaClassifier"),
+    "Trainer": ("magma_tpu_torch.training.train_loop", "Trainer"),
     "ImageInput": ("magma_tpu_torch.data.image_input", "ImageInput"),
+    "ImgCptDataset": ("magma_tpu_torch.data.dataset", "ImgCptDataset"),
+    "collate_fn": ("magma_tpu_torch.data.dataset", "collate_fn"),
+    "convert_dataset": ("magma_tpu_torch.data.convert", "convert_dataset"),
+    "BatchLoader": ("magma_tpu_torch.data.loader", "BatchLoader"),
+    "make_mesh": ("magma_tpu_torch.parallel.mesh", "make_mesh"),
     "get_transforms": ("magma_tpu_torch.data.transforms", "get_transforms"),
+    "load_pretrained_encoder": ("magma_tpu_torch.convert", "load_pretrained_encoder"),
     "LMServingEngine": ("magma_tpu_torch.serving", "LMServingEngine"),
     "MagmaServingEngine": ("magma_tpu_torch.serving", "MagmaServingEngine"),
 }
@@ -47,4 +56,7 @@ def __getattr__(name):
 
 
 __all__ = ["MultimodalConfig", "load_config", "get_tokenizer", "Magma", "MagmaClassifier",
-           "ImageInput", "get_transforms", "LMServingEngine", "MagmaServingEngine", "is_main"]
+           "Trainer", "ImageInput", "ImgCptDataset", "collate_fn", "convert_dataset",
+           "BatchLoader", "make_mesh", "get_transforms", "load_pretrained_encoder",
+           "LMServingEngine", "MagmaServingEngine", "count_parameters", "is_main",
+           "print_main", "cycle"]

@@ -1,5 +1,5 @@
-"""Weights into the port: reference-named torch state dicts, and the JAX
-package's parameter tree.
+"""Weights into and out of the port: reference-named torch state dicts,
+and the JAX package's parameter tree.
 
 ``convert_state_dict`` follows ``magma_tpu/training/torch_convert.py``
 (``convert_state_dict`` and ``_lm_from_torch``) for the published
@@ -29,6 +29,14 @@ BN running statistics into the batch-stats tree.  Conv kernels stay OIHW.
 
 ``from_jax_params`` takes the JAX package's tree as nested dicts of numpy
 arrays; the layouts are the same except the conv kernels (HWIO -> OIHW).
+
+``to_torch_state_dict`` is the inverse of ``convert_state_dict``: the
+port's (params, state) back in the reference's names, fp32 on the CPU
+(``torch_convert.py:517-725``).  The converter CLI turns a reference
+checkpoint into a directory in the port's checkpoint layout, which
+``Magma.from_checkpoint`` restores:
+
+    python -m magma_tpu_torch.convert CKPT.pt OUT_DIR [--config configs/MAGMA_v1.yml]
 """
 
 from __future__ import annotations
@@ -356,3 +364,215 @@ def from_jax_params(params_np: Dict, state_np: Optional[Dict], lm_cfg, prefix_cf
     state = _walk(state_np or {"image_prefix": {"enc": {}}},
                   lambda _, a: _tensor(a, device=device))
     return params, state
+
+
+# ---------------------------------------------------------------------------
+# Export: the port's trees -> reference names (inverse of convert_state_dict)
+# ---------------------------------------------------------------------------
+
+
+def _f32(t) -> torch.Tensor:
+    return torch.as_tensor(t).detach().to("cpu", torch.float32).contiguous()
+
+
+def _lin(t) -> torch.Tensor:
+    """A (in, out) kernel as the (out, in) weight of a torch Linear."""
+    return _f32(torch.as_tensor(t).T)
+
+
+def _refuse_serving_layout(params: Dict) -> None:
+    """The export reads the training layout only: a quantized pack, a fused
+    adapter, the fused decode vectors or a BN-folded tower raise, naming
+    the leaf (the reference names have no place for them)."""
+    def check(tree, path):
+        if not isinstance(tree, dict):
+            return
+        for k, v in tree.items():
+            name = f"{path}/{k}"
+            if k in _SERVING_PACKS or (isinstance(v, dict) and ({"q", "s"} <= v.keys()
+                                                                 or "q4" in v)):
+                raise ValueError(f"{name} is a leaf of a serving layout (quantized packs, "
+                                 f"fused adapters, bvecs): export the training layout")
+            check(v, name)
+
+    check(params["lm"], "lm")
+    # a CLIP ResNet's conv is a tensor, {"kernel", "bias"} once folded
+    if isinstance(params["image_prefix"].get("enc", {}).get("stem", {}).get("conv1"), dict):
+        raise ValueError("image_prefix/enc/stem/conv1 is BN-folded (fold_for_serving): export "
+                         "the tower before folding")
+
+
+def _zero_bn(p_bn) -> Dict:
+    c = p_bn["scale"].shape[0]
+    return {"mean": torch.zeros(c), "var": torch.ones(c)}
+
+
+def _clip_resnet_to_torch(out: Dict, enc: Dict, enc_stats: Dict, prefix: str) -> None:
+    """The CLIP ResNet tree and its BN statistics -> checkpoint names; a
+    statistic the state lacks is written as mean 0, var 1
+    (``torch_convert.py:601-648``)."""
+    def put_bn(name, p_bn, s_bn):
+        out[name + ".weight"] = _f32(p_bn["scale"])
+        out[name + ".bias"] = _f32(p_bn["bias"])
+        out[name + ".running_mean"] = _f32(s_bn["mean"])
+        out[name + ".running_var"] = _f32(s_bn["var"])
+
+    for i in (1, 2, 3):
+        out[f"{prefix}conv{i}.weight"] = _f32(enc["stem"][f"conv{i}"])
+        p_bn = enc["stem"][f"bn{i}"]
+        put_bn(f"{prefix}bn{i}", p_bn, enc_stats.get("stem", {}).get(f"bn{i}", _zero_bn(p_bn)))
+    stage = 1
+    while f"layer{stage}" in enc:
+        for bi, bp in enumerate(enc[f"layer{stage}"]):
+            base = f"{prefix}layer{stage}.{bi}."
+            bs = enc_stats.get(f"layer{stage}", [{}] * (bi + 1))[bi] if enc_stats else {}
+            for c in (1, 2, 3):
+                out[base + f"conv{c}.weight"] = _f32(bp[f"conv{c}"])
+                put_bn(base + f"bn{c}", bp[f"bn{c}"], bs.get(f"bn{c}", _zero_bn(bp[f"bn{c}"])))
+            if "down_conv" in bp:
+                out[base + "downsample.0.weight"] = _f32(bp["down_conv"])
+                put_bn(base + "downsample.1", bp["down_bn"],
+                       bs.get("down_bn", _zero_bn(bp["down_bn"])))
+        stage += 1
+
+
+def _clip_vit_to_torch(out: Dict, enc: Dict, prefix: str) -> None:
+    """The clip_vit tree -> OpenAI CLIP ``VisionTransformer`` names
+    (``torch_convert.py:657``, the inverse of ``_clip_vit_from_state_dict``)."""
+    out[prefix + "conv1.weight"] = _f32(enc["patch_embed"])
+    out[prefix + "class_embedding"] = _f32(enc["class_token"])
+    out[prefix + "positional_embedding"] = _f32(enc["pos_embed"])
+    for ln in ("ln_pre", "ln_post"):
+        out[prefix + ln + ".weight"] = _f32(enc[ln]["scale"])
+        out[prefix + ln + ".bias"] = _f32(enc[ln]["bias"])
+    out[prefix + "proj"] = _f32(enc["proj"])
+    b = enc["blocks"]
+    for i in range(b["ln_1"]["scale"].shape[0]):
+        p = f"{prefix}transformer.resblocks.{i}."
+        for ln in ("ln_1", "ln_2"):
+            out[p + ln + ".weight"] = _f32(b[ln]["scale"][i])
+            out[p + ln + ".bias"] = _f32(b[ln]["bias"][i])
+        for name, w in (("attn.in_proj", b["attn"]["qkv"]), ("attn.out_proj", b["attn"]["out"]),
+                        ("mlp.c_fc", b["mlp"]["fc"]), ("mlp.c_proj", b["mlp"]["proj"])):
+            # the fused in_proj's names have no dot before weight and bias
+            sep = "_" if name == "attn.in_proj" else "."
+            out[p + name + sep + "weight"] = _lin(w["kernel"][i])
+            out[p + name + sep + "bias"] = _f32(w["bias"][i])
+
+
+def _nf_resnet_to_torch(out: Dict, enc: Dict, prefix: str) -> None:
+    """The nfnet tree -> timm ``NormFreeNet`` names (``torch_convert.py:701``,
+    the inverse of ``_nf_resnet_from_state_dict``)."""
+    def put_ws(base, p):
+        out[base + ".weight"] = _f32(p["kernel"])
+        out[base + ".gain"] = _f32(p["gain"]).reshape(-1, 1, 1, 1)
+        out[base + ".bias"] = _f32(p["bias"])
+
+    put_ws(prefix + "stem.conv", enc["stem"])
+    stage = 1
+    while f"layer{stage}" in enc:
+        for bi, bp in enumerate(enc[f"layer{stage}"]):
+            base = f"{prefix}stages.{stage - 1}.{bi}."
+            for c in (1, 2, 3):
+                put_ws(base + f"conv{c}", bp[f"conv{c}"])
+            out[base + "skipinit_gain"] = _f32(bp["skipinit_gain"]).reshape(())
+            if "down" in bp:
+                put_ws(base + "downsample.conv", bp["down"])
+        stage += 1
+
+
+def to_torch_state_dict(params: Dict, state: Optional[Dict], lm_cfg, prefix_cfg
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's (params, state) -> a reference-named state dict of fp32
+    CPU tensors (``torch_convert.py:517-651``), the inverse of
+    ``convert_state_dict``: Linear kernels transposed back to (out, in),
+    per-layer stacks unstacked, ``wte`` cut back to ``vocab_size``, BN
+    statistics as running_mean/var.  Every adapter type is written, with
+    its LN and the scaled_parallel ``adapter_scale``.  The training layout
+    only: a tree in a serving layout raises a ValueError naming the leaf."""
+    _refuse_serving_layout(params)
+    out: Dict[str, torch.Tensor] = {}
+    lm = params["lm"]
+    out["lm.transformer.wte.weight"] = _f32(lm["wte"][:lm_cfg.vocab_size])
+    out["lm.transformer.ln_f.weight"] = _f32(lm["ln_f"]["scale"])
+    out["lm.transformer.ln_f.bias"] = _f32(lm["ln_f"]["bias"])
+    mlp_ad, attn_ad = lm_cfg.mlp_adapter, lm_cfg.attn_adapter
+    mlp_base = "mlp.0." if mlp_ad is not None else "mlp."
+    if attn_ad is None:
+        attn_base = "attn.attention."
+    elif attn_ad.adapter_type == "normal":
+        attn_base = "attn.attn_block.attention."
+    else:
+        attn_base = "attn.module.attention."
+    b = lm["blocks"]
+    for i in range(lm_cfg.n_layers):
+        p = f"lm.transformer.h.{i}."
+        out[p + "ln_1.weight"] = _f32(b["ln_1"]["scale"][i])
+        out[p + "ln_1.bias"] = _f32(b["ln_1"]["bias"][i])
+        for name, key in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "o")):
+            out[p + attn_base + name + ".weight"] = _lin(b["attn"][key][i])
+        if "o_bias" in b["attn"]:
+            out[p + attn_base + "out_proj.bias"] = _f32(b["attn"]["o_bias"][i])
+        for name, key in (("c_fc", "fc_in"), ("c_proj", "fc_out")):
+            out[p + mlp_base + name + ".weight"] = _lin(b["mlp"][key]["kernel"][i])
+            out[p + mlp_base + name + ".bias"] = _f32(b["mlp"][key]["bias"][i])
+        for key, spec, base in (("adapter_mlp", mlp_ad, "mlp.1.adapter."),
+                                ("adapter_attn", attn_ad, "attn.adapter.")):
+            if spec is None or key not in b:
+                continue
+            ad = b[key]
+            d, u = _adapter_linear_idx(spec.add_layernorm)
+            for j, proj in ((d, "down"), (u, "up")):
+                out[p + base + f"{j}.weight"] = _lin(ad[proj]["kernel"][i])
+                out[p + base + f"{j}.bias"] = _f32(ad[proj]["bias"][i])
+            if spec.add_layernorm:
+                out[p + base + "0.weight"] = _f32(ad["ln"]["scale"][i])
+                out[p + base + "0.bias"] = _f32(ad["ln"]["bias"][i])
+            if "scale" in ad and spec.adapter_type == "scaled_parallel":
+                out[p + "attn.adapter_scale"] = _f32(ad["scale"][i]).reshape(1)
+
+    ip = params["image_prefix"]
+    out["image_prefix.proj.weight"] = _lin(ip["proj"]["kernel"])
+    out["image_prefix.proj.bias"] = _f32(ip["proj"]["bias"])
+    if "ln" in ip:
+        out["image_prefix.ln.weight"] = _f32(ip["ln"]["scale"])
+        out["image_prefix.ln.bias"] = _f32(ip["ln"]["bias"])
+    enc, name = ip.get("enc"), prefix_cfg.encoder_name
+    if enc is not None and name == "clip":
+        _clip_vit_to_torch(out, enc, "image_prefix.enc.")
+    elif enc is not None and name == "nfresnet50":
+        _nf_resnet_to_torch(out, enc, "image_prefix.enc.")
+    elif enc is not None and "stem" in enc:
+        enc_stats = (state or {}).get("image_prefix", {}).get("enc", {})
+        _clip_resnet_to_torch(out, enc, enc_stats, "image_prefix.enc.")
+    return out
+
+
+def main(argv=None) -> int:
+    """The converter CLI: a reference checkpoint (``.pt``) -> a checkpoint
+    directory in the port's layout (step 0), which ``Magma.from_checkpoint``
+    restores.  It runs on the CPU unless ``--device cuda`` is given: a
+    conversion needs no card."""
+    import argparse
+
+    from magma_tpu_torch.config import MultimodalConfig
+    from magma_tpu_torch.models.magma import build_lm_config, build_prefix_config
+    from magma_tpu_torch.training.checkpoint import save_checkpoint
+
+    ap = argparse.ArgumentParser(prog="python -m magma_tpu_torch.convert")
+    ap.add_argument("ckpt", help="a reference-named torch checkpoint (mp_rank_00_model_states.pt)")
+    ap.add_argument("out_dir", help="the checkpoint directory to write")
+    ap.add_argument("--config", default="configs/MAGMA_v1.yml")
+    ap.add_argument("--device", default="cpu", help="where the tensors are converted")
+    args = ap.parse_args(argv)
+    config = MultimodalConfig.from_yml(args.config)
+    lm_cfg = build_lm_config(config)
+    params, state = load_torch_checkpoint(args.ckpt, lm_cfg, build_prefix_config(config, lm_cfg),
+                                          torch.device(args.device))
+    save_checkpoint(args.out_dir, 0, params, state)
+    print(f"converted {args.ckpt} -> {args.out_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,7 +9,8 @@ Port of ``magma_tpu/models/adapters.py`` (reference magma/adapters.py:6-116):
 where ``bottleneck(x) = up(relu(down(maybe_ln(x))))``, initialised
 N(0, 1e-3) clamped to +-2 std.  The fused int8 serving payload runs
 through ``ops/quant.fused_adapter_stacked`` (K5); the opt-in two-matmul
-int8 layout is not ported.
+int8 layout (``gptj._serving_cast_adapters(mode="int8")``) runs each
+product through ``_proj`` on K2b.
 """
 
 from __future__ import annotations
@@ -81,6 +82,18 @@ def init_adapter(generator: torch.Generator, spec: AdapterSpec, dim: int,
     return params
 
 
+def _proj(x: torch.Tensor, kernel, compute_dtype) -> torch.Tensor:
+    """A bottleneck product (``adapters.py:98-106``): ``kernel`` is a tensor,
+    or a stacked int8 {"q", "s"} pack of the int8 serving mode with its
+    layer as "idx" (``gptj._layer_views``), K2b on the card."""
+    if isinstance(kernel, dict):
+        from magma_tpu_torch.ops.quant import int8_matmul_stacked
+
+        return int8_matmul_stacked(x, kernel["q"], kernel["s"], kernel["idx"],
+                                   out_dtype=compute_dtype)
+    return x @ kernel.to(compute_dtype)
+
+
 def _bottleneck(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     """up(relu(down(maybe_ln(x)))) for one layer's params."""
     h = x
@@ -91,9 +104,9 @@ def _bottleneck(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
         h32 = (h32 - mean) * torch.rsqrt(var + 1e-5)
         h = (h32 * params["ln"]["scale"].float()
              + params["ln"]["bias"].float()).to(compute_dtype)
-    h = h @ params["down"]["kernel"].to(compute_dtype) + params["down"]["bias"].to(compute_dtype)
-    h = torch.relu(h)
-    return h @ params["up"]["kernel"].to(compute_dtype) + params["up"]["bias"].to(compute_dtype)
+    down, up = params["down"], params["up"]
+    h = torch.relu(_proj(h, down["kernel"], compute_dtype) + down["bias"].to(compute_dtype))
+    return _proj(h, up["kernel"], compute_dtype) + up["bias"].to(compute_dtype)
 
 
 def apply_adapter(

@@ -240,20 +240,40 @@ def _quantize_stacked(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def _serving_cast_adapters(params: Dict, mode: str = "bf16") -> Dict:
     """Shrink the adapters for serving, as the JAX package's function of
-    this name: ``mode="fused_int8"`` packs each adapter without an LN whose
-    dims are multiples of 128 into the {"fused": ...} payload of K5 (the
-    scaled_parallel scalar folded into the up scales and bias); the others,
-    and every adapter in ``mode="bf16"``, keep down/up in bf16.  A payload
-    already fused is left as it is.  The JAX package's opt-in ``"int8"``
-    mode (two int8 matmuls per adapter) is not ported.  Mutates params."""
-    from magma_tpu_torch.ops.quant import quantize_adapter_fused
+    this name (``gptj.py:255-317``): ``mode="fused_int8"`` packs each
+    adapter without an LN whose dims are multiples of 128 into the
+    {"fused": ...} payload of K5 (the scaled_parallel scalar folded into
+    the up scales and bias); the others, and every adapter in
+    ``mode="bf16"``, keep down/up in bf16.  ``mode="int8"`` (opt-in, for
+    deployments short of memory) packs each bottleneck kernel (L, K, N) with
+    K and N multiples of 128 as a stacked int8 {"q", "s"} pack, whose two
+    products run on K2b (``adapters._proj``), and keeps everything else
+    (biases, LN, scale, kernels off that geometry) in bf16; with such
+    adapters the fused decodes (K8, K6) stand down.  A payload already
+    fused is left as it is, except in "int8" mode, which needs the
+    down/up masters and raises.  Mutates params."""
+    from magma_tpu_torch.ops.quant import quantize_adapter_fused, quantize_int8
 
-    if mode not in ("fused_int8", "bf16"):
-        raise NotImplementedError(
-            f"adapter serving mode {mode!r}: the port has 'fused_int8' and 'bf16'")
+    if mode not in ("fused_int8", "bf16", "int8"):
+        raise ValueError(f"adapter serving mode {mode!r}: 'fused_int8', 'bf16' or 'int8'")
+
+    def kernel(t):
+        # the lane guard of the JAX package (K, N % 128); JAX calls
+        # quantize_int8 here outside jit, so the eager bytes
+        if (mode == "int8" and t.dim() == 3 and t.shape[-1] % 128 == 0
+                and t.shape[-2] % 128 == 0):
+            return quantize_int8(t)
+        return t.to(torch.bfloat16)
+
     for key in ("adapter_mlp", "adapter_attn"):
         ad = params["blocks"].get(key)
-        if ad is None or "fused" in ad:
+        if ad is None:
+            continue
+        if "fused" in ad:
+            if mode == "int8":
+                raise ValueError(f"{key} is already a fused-int8 serving payload; int8 "
+                                 "re-packing needs the bf16 down/up masters (quantize the "
+                                 "original params instead)")
             continue
         if mode == "fused_int8" and "ln" not in ad:
             fz = quantize_adapter_fused(ad["down"]["kernel"], ad["down"]["bias"],
@@ -262,7 +282,10 @@ def _serving_cast_adapters(params: Dict, mode: str = "bf16") -> Dict:
             if fz is not None:
                 params["blocks"][key] = {"fused": fz}
                 continue
-        for name in ("down", "up", "ln", "scale"):
+        for name in ("down", "up"):
+            ad[name] = {"kernel": kernel(ad[name]["kernel"]),
+                        "bias": ad[name]["bias"].to(torch.bfloat16)}
+        for name in ("ln", "scale"):
             if name in ad:
                 ad[name] = ({k: t.to(torch.bfloat16) for k, t in ad[name].items()}
                             if isinstance(ad[name], dict) else ad[name].to(torch.bfloat16))

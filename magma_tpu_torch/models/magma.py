@@ -373,13 +373,24 @@ class Magma:
     @classmethod
     def from_checkpoint(cls, config_path, checkpoint_path,
                         device: Union[str, torch.device] = "cuda") -> "Magma":
-        """Load a reference-named torch checkpoint
-        (``mp_rank_00_model_states.pt``; ``sd["module"]`` is unwrapped).
-        Parity: magma/magma.py:278-301."""
+        """Load a checkpoint (``magma.py:437-470``).  A directory is one the
+        port's ``save_checkpoint`` wrote (``Trainer.save``, the converter
+        CLI): a save root or a step directory, restored by
+        ``training.checkpoint.restore_params`` into the template this
+        config builds (the int8 QLoRA layout with ``train_lm_int8``), in
+        place on ``device``.  A file is a reference-named torch checkpoint
+        (``mp_rank_00_model_states.pt``; ``sd["module"]`` is unwrapped;
+        parity: magma/magma.py:278-301)."""
+        path = Path(checkpoint_path)
+        if path.is_dir():
+            from magma_tpu_torch.training.checkpoint import restore_params
+
+            model = cls(config_path, device=device)
+            model.params, model.state = restore_params(str(path), model.params, model.state)
+            return model
         from magma_tpu_torch.convert import load_torch_checkpoint
 
         model = cls(config_path, device=device, init_weights=False)
         model.params, model.state = load_torch_checkpoint(
-            str(checkpoint_path), model.lm_config, model.prefix_config, model.device)
+            str(path), model.lm_config, model.prefix_config, model.device)
         return model
-

@@ -5,11 +5,13 @@ Port of ``magma_tpu/ops/preprocess.py`` (reference magma/transforms.py:
 121-134).  ``F.interpolate(mode="bicubic", antialias=True)`` is the
 counterpart of ``jax.image.resize(method="bicubic")``, which antialiases
 when it downsamples; without ``antialias`` the two differ by up to 0.36 on
-a 480x640 -> 384x512 image.
+a 480x640 -> 384x512 image.  ``preprocess_uint8_batch`` takes a host
+batch to the device first.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,3 +41,14 @@ def clip_preprocess(images: torch.Tensor, n_px: int, normalize: bool = True) -> 
         std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
         x = (x - mean[:, None, None]) / std[:, None, None]
     return x.contiguous()
+
+
+def preprocess_uint8_batch(images, n_px: int, device="cuda") -> torch.Tensor:
+    """A host batch, numpy uint8 (b, h, w, 3), -> normalised float32
+    (b, 3, n_px, n_px) on ``device`` (``preprocess.py:63-65``): the card
+    unless the caller asks for the CPU, and no CPU fallback."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"preprocess_uint8_batch was asked for {device}, but CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
+    return clip_preprocess(torch.from_numpy(np.ascontiguousarray(images)).to(device), n_px)

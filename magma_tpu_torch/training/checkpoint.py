@@ -8,7 +8,9 @@ of Orbax, in the same layout (reference magma/utils.py:89-117):
     {save_dir}/config.yml              -- the config dump
 
 Tensors are saved from the CPU; a load puts each one back on the device
-and in the dtype of the template it restores.
+and in the dtype of the template it restores.  ``restore_params`` is the
+inference-time restore (params and batch statistics, no optimizer state)
+that ``Magma.from_checkpoint`` runs on a directory.
 """
 
 from __future__ import annotations
@@ -94,3 +96,49 @@ def load_checkpoint(load_dir: str, params_template: Dict, state_template: Option
     opt_state = (_like(opt_state_template, restored["opt_state"])
                  if opt_state_template is not None and "opt_state" in restored else None)
     return params, state, opt_state, int(step_dir.name.split("_")[-1])
+
+
+def _copy_into(template, restored, path: str) -> None:
+    """Copy ``restored`` into ``template``'s tensors in place, each keeping
+    its device and dtype: one copy of a tensor exists on the device, never
+    two.  The trees must match key for key and shape for shape."""
+    if isinstance(template, dict):
+        if not isinstance(restored, dict) or restored.keys() != template.keys():
+            got = sorted(restored) if isinstance(restored, dict) else type(restored).__name__
+            raise ValueError(f"checkpoint {path or 'root'}: keys {got}, the model has "
+                             f"{sorted(template)}")
+        for k, v in template.items():
+            _copy_into(v, restored[k], f"{path}/{k}")
+    elif isinstance(template, (list, tuple)):
+        if not isinstance(restored, (list, tuple)) or len(restored) != len(template):
+            raise ValueError(f"checkpoint {path}: not a list of {len(template)}")
+        for i, v in enumerate(template):
+            _copy_into(v, restored[i], f"{path}/{i}")
+    elif isinstance(template, torch.Tensor):
+        if not isinstance(restored, torch.Tensor) or restored.shape != template.shape:
+            got = tuple(restored.shape) if isinstance(restored, torch.Tensor) else restored
+            raise ValueError(f"checkpoint {path}: {got}, the model has {tuple(template.shape)}")
+        template.copy_(restored)
+
+
+def restore_params(ckpt_dir: str, params_template: Dict, state_template: Optional[Dict]
+                   ) -> Tuple[Dict, Optional[Dict]]:
+    """Inference-time restore of (params, state) (``checkpoint.py:105-126``):
+    ``ckpt_dir`` is a save root (its ``latest`` names the step) or a step
+    directory; the port's own ``checkpoint.pt`` is read (never Orbax).  The
+    restored tensors are copied into the templates' tensors in place, which
+    are returned.  A checkpoint without "state" keeps ``state_template``.
+    A key or a shape that differs from the template raises, and so does a
+    file that does not load."""
+    step_dir = latest_step_dir(ckpt_dir) or Path(ckpt_dir)
+    path = step_dir / CKPT_FILE
+    if not path.is_file():
+        raise FileNotFoundError(f"no {CKPT_FILE} in {ckpt_dir} or under the step its "
+                                f"'latest' names")
+    # mmap: each tensor is read from the file as it is copied
+    restored = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    with torch.no_grad():
+        _copy_into(params_template, restored["params"], "params")
+        if state_template is not None and "state" in restored:
+            _copy_into(state_template, restored["state"], "state")
+    return params_template, state_template

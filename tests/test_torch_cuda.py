@@ -274,6 +274,26 @@ def test_int8_matmul_stacked_kernel_matches_plain(m, dev):
     assert torch.equal(out, quant.int8_matmul_stacked(x, wq, s, 1))
 
 
+@pytest.mark.parametrize("m", [1, 8, 192])
+@pytest.mark.parametrize("k, n", [(4096, 512), (512, 4096), (4096, 1024), (1024, 4096)],
+                         ids=["v2_down", "v2_up", "v1_down", "v1_up"])
+def test_int8_matmul_stacked_kernel_at_the_adapter_shapes(k, n, m, dev):
+    """The int8 adapter mode's two products a layer (hidden 512 in v2, 1024
+    in v1) on K2b: the GEMV at M <= 8 (N = 512 gives 16 slices, so K splits
+    over a cluster), the tiles at the 192-row prefill (4 to 32 column tiles,
+    K split over a cluster), each within the summation bound of the plain
+    version and the same bits on a repeat."""
+    x, wq, s = _int8_inputs(dev, m, k, n, layers=3, seed=k + n)
+    before = quant.int8_matmul_stacked_kernel.launches
+    out = quant.int8_matmul_stacked(x, wq, s, 2)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_stacked_kernel.launches == before + 1
+    ref = quant.int8_matmul_stacked_plain(x, wq, s, 2)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    assert torch.all((out - ref).abs() <= _sum_tol(x, wq[2], s[2], k))
+    assert torch.equal(out, quant.int8_matmul_stacked(x, wq, s, 2))
+
+
 def test_int8_matmul_head_kernel_matches_plain(dev):
     from magma_tpu_torch.ops import quant
 
@@ -316,6 +336,16 @@ def test_fused_adapter_kernel_matches_plain(m, d, dh, dev):
     2^-8 |h| |Wu| su; the sums differ as in the int8 products.  Rows pad
     to 8, 16, 32 or 64 (33: a ragged 40 of the 64 tile); the chunk sums
     have a fixed order, so a repeat gives the same bits."""
+    _check_fused_adapter(dev, m, d, dh)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_fused_adapter_kernel_at_hidden_512(m, dev):
+    """MAGMA_v2's adapters (both at k=8: hidden 512 of 4096), as above."""
+    _check_fused_adapter(dev, m, 4096, 512)
+
+
+def _check_fused_adapter(dev, m, d, dh):
     from magma_tpu_torch.ops import quant
 
     g = torch.Generator(device=dev).manual_seed(4)
@@ -508,7 +538,9 @@ def test_int4_kernels_with_zero_rows(dev):
 def _boundary_payloads(dev, variant):
     """Full-width int4 payloads (D 4096, F 16384, NI 28672, 2 layers) and
     fused adapters (DH 1024) for the boundary: "v1" is an mlp adapter
-    (normal); "scaled" adds an attention adapter fed from u_in, with o_bias."""
+    (normal); "scaled" adds an attention adapter fed from u_in, with o_bias;
+    "v2" is MAGMA_v2's pair, both normal at DH 512 (the attention adapter
+    fed from its branch's output), with o_bias."""
     from magma_tpu_torch.ops import quant
 
     D, F, L = 4096, 16384, 2
@@ -520,20 +552,22 @@ def _boundary_payloads(dev, variant):
     def vec(*shape, std=0.02):
         return torch.randn(shape, generator=g, device=dev) * std
 
-    def adapter():
-        return quant.quantize_adapter_fused(vec(L, D, 1024, std=0.05), vec(L, 1024),
-                                            vec(L, 1024, D, std=0.05), vec(L, D),
+    def adapter(dh=1024):
+        return quant.quantize_adapter_fused(vec(L, D, dh, std=0.05), vec(L, dh),
+                                            vec(L, dh, D, std=0.05), vec(L, D),
                                             out_scale=torch.tensor([1.5, -0.75], device=dev))
 
     kw = dict(fz_mlp=adapter(), mlp_src="out")
     if variant == "scaled":
         kw.update(fz_attn=adapter(), attn_src="in", o_bias=vec(L, D))
+    if variant == "v2":
+        kw.update(fz_mlp=adapter(512), fz_attn=adapter(512), attn_src="out", o_bias=vec(L, D))
     return ({"q4": torch.cat([qo, qf], 1), "s4": torch.cat([so, sf], 1)},
             {"q4": qi, "s4": si}, vec(L, D), 1 + vec(L, D, std=0.1), vec(L, D), kw)
 
 
 @pytest.mark.parametrize("w_in", [True, False], ids=["with_w_in", "last_layer"])
-@pytest.mark.parametrize("variant", ["v1", "scaled"])
+@pytest.mark.parametrize("variant", ["v1", "scaled", "v2"])
 @pytest.mark.parametrize("m", [1, 2, 5, 8])
 def test_boundary_kernel_matches_plain(m, variant, w_in, dev):
     """K6 against the composition of the plain K4b, K5 and K3.  The dual
@@ -542,7 +576,16 @@ def test_boundary_kernel_matches_plain(m, variant, w_in, dev):
     another order than torch's mean and var, so an h, a z or a u on a bf16
     rounding boundary may land one bf16 ulp apart and carry into y and
     fused: each output within 2^-6 of its largest magnitude, and at least
-    90% of its elements equal."""
+    90% of its elements equal.  In "v2" the attention adapter's z is
+    several times a, and one h of its first row lies on a bf16 rounding
+    tie (within 0.005 x 2^-24 of the sum of its |terms|): K5's order of
+    the sums rounds it the other way, which moves 2% of that row's y, 3%
+    of its u and 38% of its fused by an ulp
+    (scripts/torch_k6_v2_witness.py, PERF.md).  There K6 must
+    have at least half of its elements equal to the plain version (61.7% at
+    M = 1; a kernel with its adapters fed from the wrong source reads under
+    1%), and equal bit for bit the composition of the K4b, K5 and K3
+    kernels, each held to its plain version by its own test."""
     from magma_tpu_torch.ops import quant
 
     dual, w_inp, bfo, ln_g, ln_b, kw = _boundary_payloads(dev, variant)
@@ -561,7 +604,12 @@ def test_boundary_kernel_matches_plain(m, variant, w_in, dev):
         assert g.dtype == torch.bfloat16 and g.shape == r.shape
         diff = (g.float() - r.float()).abs()
         assert diff.max() <= 2.0 ** -6 * r.float().abs().max()
-        assert (diff == 0).float().mean() >= 0.9
+        assert (g == r).float().mean() >= (0.5 if variant == "v2" else 0.9)
+    if variant == "v2":
+        composed = quant._boundary_compose(
+            *args, **dict(kw, ln_eps=1e-5), dual=quant.dual_matmul_stacked,
+            adapter=quant.fused_adapter_stacked, inproj=quant.int4_matmul_stacked)
+        assert len(composed) == len(got) and all(map(torch.equal, got, composed))
     again = quant.boundary_fused_stacked(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -718,7 +766,9 @@ def _declayer_payloads(dev, fmt, kv, recipe, L=3, D=2048, F=2048, max_len=64, se
     8192), a filled cache and the layer inputs, all from seeds on the card.
     Recipes: "v1" the mlp adapter; "scaled" both adapters (the attention's
     fed from u_in) and o_bias; "attn_no_bias" both adapters, no o_bias;
-    "bias_no_adapter" o_bias and no adapter."""
+    "bias_no_adapter" o_bias and no adapter; "v2" MAGMA_v2's: both
+    adapters normal (the attention's fed from its branch's output) and
+    o_bias.  Every adapter's hidden is 512, v2's at full width."""
     from magma_tpu_torch.models import gptj
     from magma_tpu_torch.ops import quant
 
@@ -752,7 +802,9 @@ def _declayer_payloads(dev, fmt, kv, recipe, L=3, D=2048, F=2048, max_len=64, se
         kw.update(fz_mlp=adapter(), mlp_src="out")
     if recipe in ("scaled", "attn_no_bias"):
         kw.update(fz_attn=adapter(), attn_src="in")
-    if recipe in ("scaled", "bias_no_adapter"):
+    if recipe == "v2":
+        kw.update(fz_attn=adapter(), attn_src="out")
+    if recipe in ("scaled", "bias_no_adapter", "v2"):
         kw.update(o_bias=randn(L, D, std=0.02))
     shape = (L, 1, max_len, D // 256, 256)
     kc, vc = randn(*shape).to(torch.bfloat16), randn(*shape).to(torch.bfloat16)
@@ -784,7 +836,7 @@ def _check_k7_like(got, ref, names, rel, min_equal):
 
 
 @pytest.mark.parametrize("layer", [1, 2], ids=["with_w_in", "last_layer"])
-@pytest.mark.parametrize("recipe", ["v1", "scaled"])
+@pytest.mark.parametrize("recipe", ["v1", "scaled", "v2"])
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 @pytest.mark.parametrize("fmt", ["int4", "int8"])
 def test_decode_layer_kernel_matches_plain(fmt, kv, recipe, layer, dev):
@@ -860,6 +912,8 @@ def _check_k8_layerwise(dev, fmt, kv, recipe, pos):
     got = dl.decode_all_layers_fused(*args, **kw)
     torch.cuda.synchronize()
     assert dl.decode_all_layers_kernel.launches == before + 1
+    again = dl.decode_all_layers_fused(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no float atomics
     fused0, x0, u0, sincos, kc, vc, kvs, pos_t, dual, w_in, *vecs = args
     f, xx, uu, rows = fused0, x0, u0, []
     for layer in range(3):
@@ -890,12 +944,13 @@ def test_decode_all_layers_kernel_matches_plain_layerwise(fmt, kv, pos, dev):
     _check_k8_layerwise(dev, fmt, kv, "scaled", pos)
 
 
-@pytest.mark.parametrize("recipe", ["v1", "attn_no_bias", "bias_no_adapter"])
+@pytest.mark.parametrize("recipe", ["v1", "attn_no_bias", "bias_no_adapter", "v2"])
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 @pytest.mark.parametrize("fmt", ["int4", "int8"])
 def test_decode_all_layers_kernel_recipes_match_plain(fmt, kv, recipe, dev):
-    """With and without the attention adapter, with and without o_bias, and
-    with no adapter at all (the dual's tiles then write y themselves)."""
+    """With and without the attention adapter, with and without o_bias, with
+    no adapter at all (the dual's tiles then write y themselves), and
+    MAGMA_v2's normal attention adapter fed from its branch's output."""
     _check_k8_layerwise(dev, fmt, kv, recipe, 180)
 
 

@@ -84,3 +84,49 @@ def test_tokenizer_id_space():
     tok = ByteFallbackTokenizer()
     assert (tok.eos_token_id, tok.cls_token_id, len(tok)) == (50256, 50257, 50258)
     assert tok.decode(tok.encode("Describe the painting:")[0]) == "Describe the painting:"
+
+
+# the JAX package's top-level names, eager and lazy (magma_tpu/__init__.py)
+JAX_NAMES = ("MultimodalConfig", "load_config", "get_tokenizer", "count_parameters", "is_main",
+             "print_main", "cycle", "Magma", "MagmaClassifier", "Trainer", "ImageInput",
+             "ImgCptDataset", "collate_fn", "convert_dataset", "BatchLoader", "make_mesh",
+             "get_transforms", "load_pretrained_encoder", "LMServingEngine",
+             "MagmaServingEngine")
+
+
+def test_the_jax_package_names_resolve_with_jax_blocked():
+    import magma_tpu
+
+    assert set(JAX_NAMES) == set(magma_tpu.__all__) | set(magma_tpu._LAZY)
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+        "import magma_tpu_torch as m\n"
+        f"for name in {JAX_NAMES!r}: assert callable(getattr(m, name)), name\n"
+        f"assert set(m.__all__) >= set({JAX_NAMES!r})\n"
+        "from magma_tpu_torch.data import ImgCptDataset, collate_fn, convert_dataset, ImageInput\n"
+        "from magma_tpu_torch.ops.preprocess import preprocess_uint8_batch\n"
+        "assert not [m for m in sys.modules if m == 'magma_tpu' or m.startswith('magma_tpu.')]\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_preprocess_uint8_batch_matches_jax(monkeypatch):
+    """numpy uint8 NHWC -> float32 NCHW on the asked device, against the JAX
+    package's (its atol: tests/test_torch_vision.py); the card by default,
+    which raises without CUDA."""
+    import numpy as np
+    import torch
+
+    from magma_tpu.ops.preprocess import preprocess_uint8_batch as jax_batch
+    from magma_tpu_torch.ops.preprocess import preprocess_uint8_batch
+
+    images = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3), dtype=np.uint8)
+    out = preprocess_uint8_batch(images, 64, device="cpu")
+    assert out.shape == (2, 3, 64, 64) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_batch(images, 64)), atol=1e-5)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        preprocess_uint8_batch(images, 64)

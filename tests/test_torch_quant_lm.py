@@ -124,7 +124,10 @@ def test_quantize_lm_params_byte_identical(adapters):
 
 def test_serving_cast_adapters_bf16_mode_matches_jax():
     """mode="bf16" (the JAX tensor-parallel and training layouts' adapter
-    cast): down/up, LN and scale in bf16, byte for byte."""
+    cast): down/up, LN and scale in bf16, byte for byte; and the opt-in
+    mode="int8" of the same weights: {"q", "s"} packs of the bottleneck
+    kernels and bf16 for the rest, byte for byte (the serving path of that
+    mode: tests/test_torch_adapter_int8.py)."""
     jcfg, tcfg = _configs("ln_mlp_scaled_attn")
     p = _jax_params(jcfg)
     tp = from_jax_params({"lm": p, "image_prefix": {}}, None, tcfg, None)[0]["lm"]
@@ -136,8 +139,16 @@ def test_serving_cast_adapters_bf16_mode_matches_jax():
         assert got[k].dtype == torch.bfloat16, k
         np.testing.assert_array_equal(_np(got[k]), np.asarray(want[k]).astype(np.float32),
                                       err_msg=k)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tgptj._serving_cast_adapters(tp, mode="int8")
+    want = jgptj._serving_cast_adapters(jax.tree_util.tree_map(jnp.asarray, p), mode="int8")
+    got = tgptj._serving_cast_adapters(
+        from_jax_params({"lm": p, "image_prefix": {}}, None, tcfg, None)[0]["lm"], mode="int8")
+    want, got = dict(_flat(want)), dict(_flat(got))
+    assert got.keys() == want.keys()
+    for k in (k for k in want if "adapter" in k):
+        w = np.asarray(want[k])
+        assert str(got[k].dtype).replace("torch.", "") == str(w.dtype), k
+        np.testing.assert_array_equal(_np(got[k]), w.astype(_np(got[k]).dtype), err_msg=k)
+    assert got["/blocks/adapter_attn/up/kernel/q"].dtype == torch.int8
 
 
 def test_from_jax_params_keeps_the_int8_layout():
