@@ -169,6 +169,12 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    losses, the step's host-clock ms and loader wait, the decoder (native
    or PIL, with the native build's error); then one more step of the CLI's
    trainer profiled (device busy, idle share against the CLI's step wall).
+   Then a second run on v2's yml shape: configs/MAGMA_v2.yml's adapters at
+   full width and seq 2048, ``train_dataset_dir`` a list of two
+   directories (24 and 12 JPEGs) with ``eval_dataset_dir: null`` (the
+   seeded held-out split), a ``vqa_dir`` and a ``gqa_dir``, 4 steps of
+   batch 4 at ga 4, eval every 2: the same launch checks and finite
+   losses, VQA and GQA accuracy each logged twice.
 12. The classifier: ``MagmaClassifier`` from v1 with a 2-class head at full
    width, two ``train_step_classification`` steps (ga 2 x 1) on batches of
    two images a sample and one ``eval_step_classification``, with exact
@@ -218,8 +224,21 @@ Phases (any failed check or exception ends the run with a non-zero exit):
    exact launches (7 K2b products a layer a forward, the adapters' four
    among them, the head on K2a; no K5, K6 or K8), its prefill logits
    against its dequantised bf16 path, a decode step profiled.
-Each of phases 10-14 prints its time; ``--only 10,11,12,13,14`` runs just
-those after the build (a partial run, without the last two lines).
+15. Training in the recipes that had only served on the card, each as
+   phase 8 (``phase_training``: 3 steps at full width and seq 2048, exact
+   launches, finite losses, the frozen LM's checksums, every group moved,
+   the tower's at image_enc_lr 2e-6, one micro-batch's gradients per group
+   against the plain path at phase 8's tolerances, step ms, tokens/s, peak
+   memory, a profiled step), each model freed before the next: path C,
+   configs/MAGMA_v2.yml as it stands (mlp and attention adapters at k=8,
+   bf16 LM, RN50x16 trainable at 384 px), ga 4 x micro 1; path D, v1 with
+   the ViT-B/32 (224 px, pooled prefix), trainable, ga 2 x micro 2; path
+   E, v1 with the NF-ResNet50 (random crop at 384 px), trainable, over the
+   int8 QLoRA LM (K2b, K2a, K10 as path B, the plain path swapping them
+   too), ga 2 x micro 1.
+Each of phases 10-15 prints its time; ``--only 10,11,15`` (any of 10-15)
+runs just those after the build (a partial run, without the last two
+lines).
 
 No b = 1 serving prefill of phases 3-7 may run K1's wgmma body: on it
 phase 6b's int8-cache agreement fails; phase 5c's b = 8 whole-prompt
@@ -244,6 +263,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "MAGMA_v1.yml"
+CONFIG_V2 = ROOT / "configs" / "MAGMA_v2.yml"
 PROMPT = "Describe the painting:"
 MAX_STEPS = 32
 # H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s and
@@ -2614,30 +2634,48 @@ def _time_k1_training_shape(torch, F, q, k, v, hd):
 def _train_config(path):
     """Path A: configs/MAGMA_v1.yml as it stands, ga 2 x micro 2.  Path B:
     the QLoRA recipe (bench.py stage 6): train_lm_int8, encoder frozen, ga
-    2 x micro 1.  Both at seq 2048 with warmup_num_steps 1."""
+    2 x micro 1.  Phase 15's paths, the recipes that had only served on the
+    card: C, configs/MAGMA_v2.yml as it stands (normal mlp and attention
+    adapters at k=8), its ga 4 x micro 1; D, v1 with the ViT-B/32
+    (``encoder_name: "clip"``, phase 10's tower), ga 2 x micro 2; E, v1 with
+    the NF-ResNet50 over the int8 QLoRA LM, the tower trainable, ga 2 x
+    micro 1.  All at seq 2048 with warmup_num_steps 1."""
     from magma_tpu_torch.config import MultimodalConfig
 
-    cfg = MultimodalConfig.from_yml(CONFIG)
+    cfg = MultimodalConfig.from_yml(CONFIG_V2 if path == "C" else CONFIG)
     cfg.warmup_num_steps = 1
-    cfg.gradient_accumulation_steps = 2
-    if path == "A":
-        cfg.batch_size = 4
-    else:
-        cfg.batch_size = 2
+    if path != "C":
+        cfg.gradient_accumulation_steps = 2
+    cfg.batch_size = 2 if path in ("B", "E") else 4
+    cfg.encoder_name = {"D": "clip", "E": "nfresnet50"}.get(path, cfg.encoder_name)
+    if path in ("B", "E"):
         cfg.train_lm_int8 = True
+    if path == "B":
         cfg.freeze_img_encoder = True
         cfg.lr_decay_iters = None  # bench.py's recipe: WarmupLR at lr 8e-4
     return cfg
 
 
+def _image_resolution(cfg):
+    """The side of the images the model's transforms give (``data/
+    transforms.get_transforms``): a CLIP tower's ``input_resolution`` (224
+    for the ViT-B/32), else ``image_size`` (the NF-ResNet's random crop)."""
+    from magma_tpu_torch.models.image_prefix import get_encoder
+
+    if "clip" not in cfg.encoder_name:
+        return cfg.image_size
+    return get_encoder(cfg.encoder_name, cfg.encoder_overrides)[1].input_resolution
+
+
 def _train_batch(torch, cfg, seq, seed):
-    """A seeded global batch on the card: images as CLIP's preprocessing
-    leaves them (about zero mean), captions of 1024 random tokens then EOS
-    padding, as bench.py's recipe step."""
+    """A seeded global batch on the card: images at the model's transform
+    resolution as CLIP's preprocessing leaves them (about zero mean),
+    captions of 1024 random tokens then EOS padding, as bench.py's recipe
+    step."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    b = cfg.batch_size
-    images = torch.randn((b, 3, cfg.image_size, cfg.image_size), generator=g, device=dev)
+    b, res = cfg.batch_size, _image_resolution(cfg)
+    images = torch.randn((b, 3, res, res), generator=g, device=dev)
     caps = torch.full((b, seq), 50256, dtype=torch.long, device=dev)
     caps[:, :seq // 2] = torch.randint(0, 50000, (b, seq // 2), generator=g, device=dev)
     return images, caps
@@ -2657,12 +2695,13 @@ def _checksums(torch, tensors):
 def _want_train_launches(path, L, n_chunks, ga):
     """Exact launches of one optimizer step of ga micro-steps (a forward and
     a backward each, remat on): K1 once a layer forward and once in its
-    recompute, K9a and K9b once a layer; path B also K2b for in_proj, o and
-    fc_out forward and recompute, K2a for each head chunk forward and
+    recompute, K9a and K9b once a layer (the adapters and towers are torch
+    products); paths B and E (the int8 QLoRA LM) also K2b for in_proj, o
+    and fc_out forward and recompute, K2a for each head chunk forward and
     recompute, K10 for each of those products once."""
     want = {"flash_attention_kernel": 2 * L, "flash_attention_bwd_dkv_kernel": L,
             "flash_attention_bwd_dq_kernel": L}
-    if path == "B":
+    if path in ("B", "E"):
         want.update(int8_matmul_stacked_kernel=6 * L, int8_matmul_kernel=2 * n_chunks,
                     int8_matmul_dx_kernel=3 * L + n_chunks)
     return {k: ga * want.get(k, 0) for k in _all_wrappers()}
@@ -2717,7 +2756,7 @@ def _compare_with_plain_path(torch, trainer, path, images, captions):
     loss_k, g_k = _group_grads(torch, trainer, img, cap, 7)
     model.lm_config = dataclasses.replace(cfg0, attention_impl="xla")
     try:
-        if path == "B":
+        if path in ("B", "E"):
             with _PlainInt8():
                 loss_p, g_p = _group_grads(torch, trainer, img, cap, 7)
         else:
@@ -2795,8 +2834,9 @@ def _time_optimizer(torch, trainer, batch, wall_ms, tag):
 
 
 def phase_training(torch, path):
-    """Phase 8 (path A) or 9 (path B): the Trainer at full width.  Returns
-    the launches of its TRAIN_STEPS steps by wrapper."""
+    """Phase 8 (path A), 9 (path B) or 15 (paths C, D, E): the Trainer at
+    full width (``_train_config``).  Returns the launches of its
+    TRAIN_STEPS steps by wrapper."""
     from magma_tpu_torch.models.magma import Magma
     from magma_tpu_torch.training.optim import label_params
     from magma_tpu_torch.training.train_loop import Trainer
@@ -2815,17 +2855,29 @@ def phase_training(torch, path):
     micro = cfg.batch_size // ga
     frozen = [t for _, t in tree_items(trainer.params) if not t.requires_grad]
     n_trainable = sum(t.numel() for _, t in trainer.trainable)
-    print(f"[{tag}] Magma({CONFIG.name}) + Trainer in {time.perf_counter() - t0:.1f} s: "
-          f"{'int8 QLoRA layout' if cfg.train_lm_int8 else 'bf16 LM'}, "
-          f"{nbytes(*frozen) / 1e9:.2f} GB frozen, {n_trainable / 1e6:.1f} M trainable, seq {seq}, "
-          f"ga {ga} x micro {micro}, lr {cfg.lr}, image_enc_lr {cfg.image_enc_lr}, dropout "
-          f"{cfg.image_embed_dropout_prob}, attention {lm.attention_impl}, remat {lm.remat}")
-    check(lm.remat and lm.attention_impl == "flash" and seq == 2048, f"{tag}: not the recipe")
+    adapters = [(name, spec.downsample_factor) for name, spec in
+                (("mlp", lm.mlp_adapter), ("attention", lm.attn_adapter)) if spec is not None]
+    res = _image_resolution(cfg)
+    print(f"[{tag}] Magma({(CONFIG_V2 if path == 'C' else CONFIG).name}, encoder "
+          f"{cfg.encoder_name} at {res} px, "
+          f"{'frozen' if cfg.freeze_img_encoder else 'trainable'}, prefix "
+          f"{model.image_prefix_seq_len} tokens) + Trainer in {time.perf_counter() - t0:.1f} s: "
+          f"{'int8 QLoRA layout' if cfg.train_lm_int8 else 'bf16 LM'}, adapters (name, k) "
+          f"{adapters}, {nbytes(*frozen) / 1e9:.2f} GB frozen, {n_trainable / 1e6:.1f} M "
+          f"trainable, seq {seq}, ga {ga} x micro {micro}, lr {cfg.lr}, image_enc_lr "
+          f"{cfg.image_enc_lr}, dropout {cfg.image_embed_dropout_prob}, attention "
+          f"{lm.attention_impl}, remat {lm.remat}")
+    check(lm.remat and lm.attention_impl == "flash" and seq == 2048 and L == 28
+          and lm.d_model == 4096, f"{tag}: not the recipe")
+    check(adapters == ([("mlp", 8), ("attention", 8)] if path == "C" else [("mlp", 4)])
+          and res == (224 if path == "D" else 384), f"{tag}: not the recipe: {adapters}, {res} px")
     frozen_sums = _checksums(torch, frozen)
     labels = dict(tree_items(label_params(trainer.params)))
     before = {}
     for p, t in trainer.trainable:
         before.setdefault(labels[p], []).append(t.detach().clone())
+    check(("img_enc_decay" in before) == (not cfg.freeze_img_encoder),
+          f"{tag}: the tower's groups {sorted(before)}")
 
     wrappers = _all_wrappers()
     want = _want_train_launches(path, L, n_chunks, ga)
@@ -2890,6 +2942,19 @@ def phase_training(torch, path):
     return totals
 
 
+def phase_more_training(torch):
+    """Phase 15: training in the recipes that had only served on the card,
+    each through ``phase_training`` at full width, each model freed before
+    the next: path C (MAGMA_v2 as it stands), D (the ViT-B/32), E (the
+    NF-ResNet50 over the int8 QLoRA LM).  Returns their launches by
+    wrapper."""
+    totals = {}
+    for path in "CDE":
+        for k, v in phase_training(torch, path).items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
 # ---------------------------------------------------------------------------
 # Phases 10-12: the other image towers, the train CLI, the classifier
 # ---------------------------------------------------------------------------
@@ -2926,8 +2991,7 @@ def _tower_vs_cpu(torch, model, tag):
     ov["compute_dtype"] = torch.float32
     cfg32 = dataclasses.replace(pc, compute_dtype=torch.float32,
                                 encoder_overrides=tuple(sorted(ov.items())))
-    res = model.config.image_size if model.config.encoder_name == "nfresnet50" \
-        else pc.input_resolution
+    res = _image_resolution(model.config)
     images = torch.randn((2, 3, res, res), generator=torch.Generator().manual_seed(11))
     params = tree_map(lambda t: t.float(), model.params["image_prefix"])
     state = model.state["image_prefix"]
@@ -3038,8 +3102,9 @@ CLI_DIR = ROOT / "build" / "smoke_cli"
 
 
 def _write_cli_data(root):
-    """24 seeded JPEGs at mixed sizes with two captions each (an
-    ImgCptDataset), and 6 VQA questions over 6 more images."""
+    """Seeded JPEGs at mixed sizes with two captions each (ImgCptDatasets:
+    24 under train, 12 under train2), and 6 VQA and 6 GQA questions over 6
+    more images each."""
     import json
     import shutil
 
@@ -3048,7 +3113,8 @@ def _write_cli_data(root):
     shutil.rmtree(root, ignore_errors=True)
     rng = np.random.default_rng(0)
     sizes = [(480, 640), (640, 480), (384, 384), (300, 500)]
-    for sub, n, vqa in (("train", 24, False), ("vqa", 6, True)):
+    for sub, n, qa in (("train", 24, False), ("train2", 12, False), ("vqa", 6, True),
+                       ("gqa", 6, True)):
         for d in ("images/0", "image_data/0"):
             (root / sub / d).mkdir(parents=True)
         for i in range(n):
@@ -3057,7 +3123,7 @@ def _write_cli_data(root):
                 root / sub / "images" / "0" / f"{i}.jpg", quality=90)
             rec = {"image_path": f"images/0/{i}.jpg",
                    "captions": [f"a painting of a scene number {i}", f"picture {i}"]}
-            if vqa:
+            if qa:
                 rec["metadata"] = {"question": f"what is shown in picture {i}?",
                                    "answers": ["painting", "painting", "scene"]}
             (root / sub / "image_data" / "0" / f"{i}.json").write_text(json.dumps(rec))
@@ -3100,99 +3166,125 @@ class _CallProbe:
             setattr(self.owner, n, fn)
 
 
-def _cli_yml(root, seq):
-    """configs/MAGMA_v1.yml at full width and seq 2048, cut to a run of 4
-    steps of batch 4 (ga 2), eval every 2 over 1 batch, VQA over 6
-    questions, no checkpoint (a 6B checkpoint is ~12 GB plus the optimizer's
-    state: the CPU test holds save and resume)."""
+def _cli_yml(root, seq, run):
+    """Run "v1": configs/MAGMA_v1.yml at full width and seq 2048, cut to a
+    run of 4 steps of batch 4 (ga 2), eval every 2 over 1 batch, the eval
+    set held out of the training directory, VQA over 6 questions, no
+    checkpoint (a 6B checkpoint is ~12 GB plus the optimizer's state: the
+    CPU test holds save and resume).  Run "v2": configs/MAGMA_v2.yml's
+    shape, the same cut at its ga 4: two training directories, the eval set
+    held out of both, VQA and GQA over 6 questions each."""
     import yaml
 
     from magma_tpu_torch.config import load_config
 
-    raw = load_config(CONFIG)
-    raw.update(batch_size=4, gradient_accumulation_steps=2, train_steps=4, log_every=1,
-               eval_every=2, eval_steps=1, save=None, load=None, seq_len=seq,
-               train_dataset_dir=str(root / "train"), eval_dataset_dir=None,
-               eval_dataset_pct=0.25, vqa_dir=str(root / "vqa"), num_workers=4,
-               warmup_num_steps=1)
-    path = root / "cli.yml"
+    v2 = run == "v2"
+    raw = load_config(CONFIG_V2 if v2 else CONFIG)
+    raw.update(batch_size=4, gradient_accumulation_steps=4 if v2 else 2, train_steps=4,
+               log_every=1, eval_every=2, eval_steps=1, save=None, load=None, seq_len=seq,
+               train_dataset_dir=([str(root / "train"), str(root / "train2")] if v2
+                                  else str(root / "train")),
+               eval_dataset_dir=None, eval_dataset_pct=0.25, vqa_dir=str(root / "vqa"),
+               gqa_dir=str(root / "gqa") if v2 else None, num_workers=4, warmup_num_steps=1)
+    path = root / f"cli_{run}.yml"
     path.write_text(yaml.safe_dump(raw))
     return path
 
 
 def phase_cli(torch):
     """Phase 11: ``magma_tpu_torch.train.main`` in-process at full width from
-    JPEGs on disk.  Returns the launches by wrapper (and K1's wgmma ones)."""
+    JPEGs on disk, on v1's yml and on v2's shape.  Returns the launches of
+    both runs by wrapper (and K1's wgmma ones)."""
     import json
 
     from magma_tpu_torch import evaluation, native, train
+    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
     from magma_tpu_torch.training.train_loop import Trainer
 
     L, seq = 28, 2048
     _write_cli_data(CLI_DIR)
-    yml = _cli_yml(CLI_DIR, seq)
     decoder = "native" if native.available() else "PIL"
     print(f"[cli] decoder {decoder}" + ("" if decoder == "native" else
                                         f" (native build error: {native.build_error()})"))
     wrappers = _all_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0  # count this path only
-    from magma_tpu_torch.ops.flash_attention import flash_attention_kernel
+    totals = dict.fromkeys(wrappers, 0)
+    totals["k1_wgmma"] = 0
+    for run in ("v1", "v2"):
+        tag, log_dir = f"cli {run}", CLI_DIR / f"log_{run}"
+        yml = _cli_yml(CLI_DIR, seq, run)
+        for fn in wrappers.values():
+            fn.launches = 0  # count this run only
+        flash_attention_kernel.wgmma_launches = 0
+        t0 = time.perf_counter()
+        with _CallProbe(Trainer, ("train_step", "eval_step", "inference_step")) as tp, \
+                _CallProbe(evaluation, ("eval_vqa",)) as vp:
+            trainer = train.main(["--config", str(yml), "--log-dir", str(log_dir)])
+        wall = time.perf_counter() - t0
+        for k, fn in wrappers.items():
+            totals[k] += fn.launches
+        totals["k1_wgmma"] += flash_attention_kernel.wgmma_launches
+        check(trainer.global_step == 4, f"{tag}: {trainer.global_step} steps, expected 4")
+        lm, cfg = trainer.model.lm_config, trainer.config
+        adapters = [spec.downsample_factor for spec in (lm.mlp_adapter, lm.attn_adapter) if spec]
+        check(lm.n_layers == L and lm.d_model == 4096 and trainer.model.seq_len == seq
+              and adapters == ([8, 8] if run == "v2" else [4]), f"{tag}: not the recipe")
+        ga = cfg.gradient_accumulation_steps
+        print(f"[{tag}] adapters k {adapters}, ga {ga}, train_dataset_dir "
+              f"{cfg.train_dataset_dir}, eval_dataset_dir {cfg.eval_dataset_dir}, vqa_dir "
+              f"{cfg.vqa_dir}, gqa_dir {cfg.gqa_dir}")
+        for name, got, ms in tp.calls + vp.calls:
+            print(f"[{tag}] {name}: {ms:.1f} ms (host clock), launches "
+                  + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+            if name == "train_step":
+                want = {"flash_attention_kernel": 2 * L * ga,
+                        "flash_attention_bwd_dkv_kernel": L * ga,
+                        "flash_attention_bwd_dq_kernel": L * ga}
+                want = {k: want.get(k, 0) for k in wrappers}
+                check({k: got[k] for k in wrappers} == want,
+                      f"{tag} train_step launches {got}, expected {want}")
+                check(got["k1_wgmma"] == 2 * L * ga,
+                      f"{tag}: a training K1 missed the wgmma body: {got}")
+            else:  # each eval forward, caption prefill and VQA or GQA prefill: K1 once a layer
+                n_fwd = cfg.eval_steps if name == "eval_step" else 1
+                check(got["flash_attention_kernel"] == L * n_fwd,
+                      f"{tag} {name}: {got['flash_attention_kernel']} K1 launches")
+        metrics = [json.loads(x) for x in (log_dir / "metrics.jsonl").read_text().splitlines()]
 
-    flash_attention_kernel.wgmma_launches = 0
-    t0 = time.perf_counter()
-    with _CallProbe(Trainer, ("train_step", "eval_step", "inference_step")) as tp, \
-            _CallProbe(evaluation, ("eval_vqa",)) as vp:
-        trainer = train.main(["--config", str(yml), "--log-dir", str(CLI_DIR / "log")])
-    wall = time.perf_counter() - t0
-    check(trainer.global_step == 4, f"cli: {trainer.global_step} steps, expected 4")
-    lm = trainer.model.lm_config
-    check(lm.n_layers == L and lm.d_model == 4096 and trainer.model.seq_len == seq,
-          "cli: not the full-width recipe")
-    ga = trainer.config.gradient_accumulation_steps
-    for name, got, ms in tp.calls + vp.calls:
-        print(f"[cli] {name}: {ms:.1f} ms (host clock), launches "
-              + ", ".join(f"{k} {v}" for k, v in got.items() if v))
-        if name == "train_step":
-            want = {"flash_attention_kernel": 2 * L * ga, "flash_attention_bwd_dkv_kernel": L * ga,
-                    "flash_attention_bwd_dq_kernel": L * ga}
-            want = {k: want.get(k, 0) for k in wrappers}
-            check({k: got[k] for k in wrappers} == want,
-                  f"cli train_step launches {got}, expected {want}")
-            check(got["k1_wgmma"] == 2 * L * ga, f"cli: a training K1 missed the wgmma body: {got}")
-        else:  # each eval forward, caption prefill and VQA prefill: K1 once a layer
-            n_fwd = trainer.config.eval_steps if name == "eval_step" else 1
-            check(got["flash_attention_kernel"] == L * n_fwd,
-                  f"cli {name}: {got['flash_attention_kernel']} K1 launches")
-    metrics = [json.loads(x) for x in (CLI_DIR / "log" / "metrics.jsonl").read_text().splitlines()]
-    losses = [m["train/loss"] for m in metrics if "train/loss" in m]
-    step_s = [m["train/step_time"] for m in metrics if "train/step_time" in m]
-    waits = [m["train/loader_wait"] for m in metrics if "train/loader_wait" in m]
-    evals = [m["eval/loss"] for m in metrics if "eval/loss" in m]
-    captions = [m["inference/captions"] for m in metrics if "inference/captions" in m]
-    accs = [m["eval/vqa_accuracy"] for m in metrics if "eval/vqa_accuracy" in m]
-    print(f"[cli] {len(losses)} train losses {losses}, eval losses {evals}, VQA accuracies "
-          f"{accs}, captions {captions[:1]}")
-    check(len(losses) == 4 and all(np.isfinite(losses)), f"cli: train losses {losses}")
-    check(len(evals) == 2 and all(np.isfinite(evals)), f"cli: eval losses {evals}")
-    check(len(captions) == 2 and all("Caption 0" in c for c in captions), "cli: no captions")
-    check(len(accs) == 2 and all(0.0 <= a <= 1.0 for a in accs), f"cli: VQA accuracies {accs}")
-    train_ms = [ms for name, _, ms in tp.calls if name == "train_step"]
-    print(f"[cli] step {statistics.median(step_s[1:]) * 1e3:.1f} ms a step (host clock, the "
-          f"loss read every step, median of steps 2-4), loader wait "
-          f"{statistics.median(waits[1:]) * 1e3:.2f} ms a step (median of steps 2-4; step 1 "
-          f"{waits[0] * 1e3:.1f} ms), train_step call {statistics.median(train_ms):.1f} ms "
-          f"(median dispatch, sync=False), whole run {wall:.1f} s, decoder {decoder}")
-    got = {k: fn.launches for k, fn in wrappers.items()}
-    got["k1_wgmma"] = flash_attention_kernel.wgmma_launches
-    # one more step of the CLI's trainer, profiled, against the CLI's step
-    # wall (its launches are not the main path's: counted before it)
-    _profile_train_step(torch, trainer, _train_batch(torch, trainer.config, seq, 900),
-                        statistics.median(step_s[1:]) * 1e3, "cli")
-    del trainer
-    gc.collect()
-    torch.cuda.empty_cache()
-    return got
+        def logged(key):
+            return [m[key] for m in metrics if key in m]
+
+        losses, step_s, waits = (logged("train/loss"), logged("train/step_time"),
+                                 logged("train/loader_wait"))
+        evals, captions = logged("eval/loss"), logged("inference/captions")
+        accs = {qa: logged(f"eval/{qa}_accuracy") for qa in ("vqa", "gqa")}
+        print(f"[{tag}] {len(losses)} train losses {losses}, eval losses {evals}, accuracies "
+              f"{accs}, captions {captions[:1]}")
+        check(len(losses) == 4 and all(np.isfinite(losses)), f"{tag}: train losses {losses}")
+        check(len(evals) == 2 and all(np.isfinite(evals)), f"{tag}: eval losses {evals}")
+        check(len(captions) == 2 and all("Caption 0" in c for c in captions),
+              f"{tag}: no captions")
+        for qa, want_n in (("vqa", 2), ("gqa", 2 if run == "v2" else 0)):
+            check(len(accs[qa]) == want_n and all(0.0 <= a <= 1.0 for a in accs[qa]),
+                  f"{tag}: {qa} accuracies {accs[qa]}")
+        check(len(vp.calls) == 2 * len([a for a in accs.values() if a]),
+              f"{tag}: {len(vp.calls)} eval_vqa calls")
+        train_ms = [ms for name, _, ms in tp.calls if name == "train_step"]
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        print(f"[{tag}] step {step_ms:.1f} ms a step (host clock, the loss read every step, "
+              f"median of steps 2-4), {cfg.batch_size * seq / step_ms * 1e3:.0f} tokens/s, "
+              f"loader wait {statistics.median(waits[1:]) * 1e3:.2f} ms a step (median of "
+              f"steps 2-4; step 1 {waits[0] * 1e3:.1f} ms), train_step call "
+              f"{statistics.median(train_ms):.1f} ms (median dispatch, sync=False), whole run "
+              f"{wall:.1f} s, decoder {decoder}")
+        if run == "v1":
+            # one more step of the CLI's trainer, profiled, against the CLI's
+            # step wall (its launches are not the main path's: counted before it)
+            _profile_train_step(torch, trainer, _train_batch(torch, cfg, seq, 900), step_ms,
+                                tag)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
 
 
 # phase 12, one micro-batch through the kernels against the plain path.
@@ -4081,7 +4173,6 @@ def phase_parallel(torch):
 # Phase 14: MAGMA_v2 (attention adapters at k=8) and the last modules
 # ---------------------------------------------------------------------------
 
-CONFIG_V2 = ROOT / "configs" / "MAGMA_v2.yml"
 V2_CKPT_DIR = ROOT / "build" / "smoke_v2_ckpt"
 # not 0: ``Magma.from_checkpoint`` builds its template from seed 0, so a
 # restore that copied nothing would leave other weights
@@ -4366,7 +4457,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", default=None,
-                        help="run only these of phases 10,11,12,13,14 after the build (a "
+                        help="run only these of phases 10-15 after the build (a "
                              "partial run: it prints neither the kernels' line nor the ok line)")
     args = parser.parse_args(argv)
     import torch
@@ -4380,7 +4471,7 @@ def main(argv=None) -> int:
     phase_build()
     later = {"10": ("towers", phase_towers), "11": ("cli", phase_cli),
              "12": ("classifier", phase_classifier), "13": ("parallel", phase_parallel),
-             "14": ("v2", phase_v2)}
+             "14": ("v2", phase_v2), "15": ("train CDE", phase_more_training)}
     if args.only is not None:
         for phase in args.only.split(","):
             _timed(later[phase][0], later[phase][1], torch)
@@ -4434,7 +4525,7 @@ def main(argv=None) -> int:
         check(n > 0, f"no path launched {wrapper}")
     k1["launches"] = launches["flash_attention_kernel"]
     k1["wgmma_launches"] = sum(paths[p]["k1_wgmma"] for p in ("train A", "train B", "cli",
-                                                             "classifier"))
+                                                             "classifier", "train CDE"))
     entries = {**int8_entries, **int4_entries, **decode_entries, **train_entries}
     kernels = [k1] + [dict(entries[w], launches=launches[w])
                       for w in (*INT8_KERNELS, *INT4_KERNELS, *DECODE_KERNELS, *TRAIN_KERNELS)]

@@ -551,8 +551,8 @@ def to_torch_state_dict(params: Dict, state: Optional[Dict], lm_cfg, prefix_cfg
 def main(argv=None) -> int:
     """The converter CLI: a reference checkpoint (``.pt``) -> a checkpoint
     directory in the port's layout (step 0), which ``Magma.from_checkpoint``
-    restores.  It runs on the CPU unless ``--device cuda`` is given: a
-    conversion needs no card."""
+    restores.  It converts on the card unless ``--device cpu`` is given,
+    and raises without CUDA."""
     import argparse
 
     from magma_tpu_torch.config import MultimodalConfig
@@ -563,8 +563,12 @@ def main(argv=None) -> int:
     ap.add_argument("ckpt", help="a reference-named torch checkpoint (mp_rank_00_model_states.pt)")
     ap.add_argument("out_dir", help="the checkpoint directory to write")
     ap.add_argument("--config", default="configs/MAGMA_v1.yml")
-    ap.add_argument("--device", default="cpu", help="where the tensors are converted")
+    ap.add_argument("--device", default="cuda",
+                    help="where the tensors are converted (default cuda; 'cpu' for the CPU)")
     args = ap.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"the converter was asked for {args.device}, but CUDA is not "
+                           "available; pass --device cpu to convert on the CPU")
     config = MultimodalConfig.from_yml(args.config)
     lm_cfg = build_lm_config(config)
     params, state = load_torch_checkpoint(args.ckpt, lm_cfg, build_prefix_config(config, lm_cfg),

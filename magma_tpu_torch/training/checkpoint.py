@@ -7,17 +7,19 @@ of Orbax, in the same layout (reference magma/utils.py:89-117):
     {save_dir}/latest                  -- names the newest step dir, written last
     {save_dir}/config.yml              -- the config dump
 
-Tensors are saved from the CPU; a load puts each one back on the device
-and in the dtype of the template it restores.  ``restore_params`` is the
-inference-time restore (params and batch statistics, no optimizer state)
-that ``Magma.from_checkpoint`` runs on a directory.
+Tensors are saved from the CPU.  Both loads, ``load_checkpoint`` (the
+Trainer's resume: params, state and optimizer state) and ``restore_params``
+(the inference-time restore of params and batch statistics that
+``Magma.from_checkpoint`` runs on a directory), check the file against
+their templates key for key and shape for shape and copy each tensor into
+the template's in place, on its device and in its dtype.
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import yaml
@@ -68,57 +70,73 @@ def latest_step_dir(save_dir: str) -> Optional[Path]:
     return step_dir if (step_dir / CKPT_FILE).exists() else None
 
 
-def _like(template, restored):
-    """``restored`` on the devices and in the dtypes of ``template``'s
-    tensors (other leaves as restored)."""
-    def leaf(t, r):
-        if isinstance(t, torch.Tensor):
-            return r.to(device=t.device, dtype=t.dtype)
-        return r
+def _match(template, restored, path: str, pairs: List) -> Any:
+    """Check ``restored`` against ``template`` key for key and shape for
+    shape, appending each (template tensor, restored tensor) to ``pairs``.
+    Returns the template's tree with its other leaves (the optimizer's
+    counts) as restored.  A leaf that differs raises a ``ValueError`` that
+    names it."""
+    if isinstance(template, dict):
+        if not isinstance(restored, dict):
+            raise ValueError(f"checkpoint {path}: a {type(restored).__name__}, the model has "
+                             f"keys {sorted(template)}")
+        extra = sorted(restored.keys() - template.keys())
+        missing = sorted(template.keys() - restored.keys())
+        if extra or missing:
+            raise ValueError("; ".join([f"checkpoint {path}/{k}: not in the model" for k in extra]
+                                       + [f"checkpoint {path}/{k}: not in the file"
+                                          for k in missing]))
+        return {k: _match(v, restored[k], f"{path}/{k}", pairs) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        if not isinstance(restored, (list, tuple)) or len(restored) != len(template):
+            raise ValueError(f"checkpoint {path}: not a list of {len(template)}")
+        return [_match(v, restored[i], f"{path}/{i}", pairs) for i, v in enumerate(template)]
+    if isinstance(template, torch.Tensor):
+        if not isinstance(restored, torch.Tensor) or restored.shape != template.shape:
+            got = tuple(restored.shape) if isinstance(restored, torch.Tensor) else restored
+            raise ValueError(f"checkpoint {path}: {got}, the model has {tuple(template.shape)}")
+        pairs.append((template, restored))
+        return template
+    if isinstance(restored, torch.Tensor):
+        raise ValueError(f"checkpoint {path}: a tensor, the model has {template!r}")
+    return restored
 
-    return tree_map(leaf, template, restored)
+
+def _restore(path: Path, templates: Dict[str, Any]) -> Dict:
+    """Read ``path`` and copy its trees into ``templates`` (name -> tree, the
+    trees None or absent from the file skipped) in place, each tensor
+    keeping its device and dtype: one copy of a tensor exists on the
+    device, never two.  Every tree is checked before the first copy, so a
+    checkpoint that does not match leaves the templates as they were.
+    Returns {name: restored tree}."""
+    # mmap: each tensor is read from the file as it is copied
+    payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    if "params" not in payload:
+        raise ValueError(f"checkpoint {path}: no params")
+    pairs: List = []
+    out = {name: _match(t, payload[name], name, pairs) for name, t in templates.items()
+           if t is not None and name in payload}
+    with torch.no_grad():
+        for t, r in pairs:
+            t.copy_(r)
+    return out
 
 
 def load_checkpoint(load_dir: str, params_template: Dict, state_template: Optional[Dict] = None,
                     opt_state_template: Any = None
                     ) -> Tuple[Optional[Dict], Optional[Dict], Any, int]:
-    """Restore (params, state, opt_state, global_step); (None, None, None, 0)
-    when nothing restorable exists, and the caller starts from scratch
-    (utils.py:105-117)."""
+    """Restore (params, state, opt_state, global_step) into the templates in
+    place (``_restore``: a key or a shape that differs raises); (None, None,
+    None, 0) when nothing restorable exists, and the caller starts from
+    scratch (utils.py:105-117).  A tree the file lacks comes back None."""
     step_dir = latest_step_dir(load_dir)
     if step_dir is None:
         print(f"Model loading failed from {load_dir} - starting from global step 0")
         return None, None, None, 0
-    restored = torch.load(step_dir / CKPT_FILE, map_location="cpu", weights_only=True)
-    params = _like(params_template, restored["params"])
-    state = (_like(state_template, restored["state"])
-             if state_template is not None and "state" in restored else None)
-    opt_state = (_like(opt_state_template, restored["opt_state"])
-                 if opt_state_template is not None and "opt_state" in restored else None)
-    return params, state, opt_state, int(step_dir.name.split("_")[-1])
-
-
-def _copy_into(template, restored, path: str) -> None:
-    """Copy ``restored`` into ``template``'s tensors in place, each keeping
-    its device and dtype: one copy of a tensor exists on the device, never
-    two.  The trees must match key for key and shape for shape."""
-    if isinstance(template, dict):
-        if not isinstance(restored, dict) or restored.keys() != template.keys():
-            got = sorted(restored) if isinstance(restored, dict) else type(restored).__name__
-            raise ValueError(f"checkpoint {path or 'root'}: keys {got}, the model has "
-                             f"{sorted(template)}")
-        for k, v in template.items():
-            _copy_into(v, restored[k], f"{path}/{k}")
-    elif isinstance(template, (list, tuple)):
-        if not isinstance(restored, (list, tuple)) or len(restored) != len(template):
-            raise ValueError(f"checkpoint {path}: not a list of {len(template)}")
-        for i, v in enumerate(template):
-            _copy_into(v, restored[i], f"{path}/{i}")
-    elif isinstance(template, torch.Tensor):
-        if not isinstance(restored, torch.Tensor) or restored.shape != template.shape:
-            got = tuple(restored.shape) if isinstance(restored, torch.Tensor) else restored
-            raise ValueError(f"checkpoint {path}: {got}, the model has {tuple(template.shape)}")
-        template.copy_(restored)
+    out = _restore(step_dir / CKPT_FILE, {"params": params_template, "state": state_template,
+                                         "opt_state": opt_state_template})
+    return (out["params"], out.get("state"), out.get("opt_state"),
+            int(step_dir.name.split("_")[-1]))
 
 
 def restore_params(ckpt_dir: str, params_template: Dict, state_template: Optional[Dict]
@@ -135,10 +153,5 @@ def restore_params(ckpt_dir: str, params_template: Dict, state_template: Optiona
     if not path.is_file():
         raise FileNotFoundError(f"no {CKPT_FILE} in {ckpt_dir} or under the step its "
                                 f"'latest' names")
-    # mmap: each tensor is read from the file as it is copied
-    restored = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-    with torch.no_grad():
-        _copy_into(params_template, restored["params"], "params")
-        if state_template is not None and "state" in restored:
-            _copy_into(state_template, restored["state"], "state")
+    _restore(path, {"params": params_template, "state": state_template})
     return params_template, state_template

@@ -268,20 +268,23 @@ class Trainer:
 
     def load(self, load_dir: str, load_optimizer: bool = True) -> int:
         """Resume; returns the restored global step (0 when nothing was
-        found), as utils.py:99-117."""
+        found), as utils.py:99-117.  The checkpoint is checked against the
+        whole tree and copied into the live tensors in place
+        (``checkpoint.load_checkpoint``); under tp into the gathered tree,
+        whose shards this rank then keeps.  A key or a shape that differs
+        raises a ``ValueError`` naming the leaf, and nothing is restored."""
         from magma_tpu_torch.training import checkpoint as ckpt
 
-        params, state, opt_state, step = ckpt.load_checkpoint(
-            load_dir, sharding.unshard_params(self.mesh, self.params, self.model.lm_config),
-            self.state, self.optimizer.state_dict() if load_optimizer else None)
+        full = sharding.unshard_params(self.mesh, self.params, self.model.lm_config)
+        params, _, opt_state, step = ckpt.load_checkpoint(
+            load_dir, full, self.state, self.optimizer.state_dict() if load_optimizer else None)
         if params is None:
             return 0
-        params = sharding.shard_params(self.mesh, params)
-        with torch.no_grad():
-            for (_, t), (_, r) in zip(tree_items(self.params), tree_items(params)):
-                t.copy_(r)
-        if state is not None:
-            self.state = state
+        if full is not self.params:
+            with torch.no_grad():
+                shards = sharding.shard_params(self.mesh, params)
+                for (_, t), (_, r) in zip(tree_items(self.params), tree_items(shards)):
+                    t.copy_(r)
         if load_optimizer and opt_state is not None:
             self.optimizer.load_state_dict(opt_state)
             self.global_step = step

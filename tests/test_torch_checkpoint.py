@@ -9,7 +9,15 @@ tensors into the template's in place, so params and BN statistics must be
 bit-equal to what was saved, from the save root and from its step
 directory, and greedy tokens identical before and after the round trip and
 to JAX's.
+
+The Trainer's resume (``Trainer.load``) goes through the same checked
+restore: a clean resume copies params, state, moments and counts into the
+live tensors bit for bit, and a file of another layout (an extra adapter,
+a missing leaf, a leaf or a moment of another but broadcastable shape)
+raises a ``ValueError`` naming the leaf and restores nothing.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -138,3 +146,89 @@ def test_train_lm_int8_checkpoint_restores_into_the_int8_template(tmp_path):
     for k, t in tree_items(got.params):
         assert t.dtype == want[k].dtype and torch.equal(t, want[k]), k
     assert got.params["lm"]["blocks"]["attn"]["o"]["q"].dtype == torch.int8
+
+
+def _trained(cfg, seed, steps):
+    """A Trainer of a seeded model after ``steps`` steps, so that its
+    moments and counts are off zero."""
+    trainer = TTrainer(TMagma(cfg, seed=seed, device="cpu"), cfg)
+    r = np.random.default_rng(seed)
+    for _ in range(steps):
+        caps = np.full((2, 128), 50256, np.int64)
+        caps[:, :10] = r.integers(0, 50000, (2, 10))
+        trainer.train_step(r.standard_normal((2, 3, 64, 64)).astype(np.float32), caps)
+    return trainer
+
+
+def test_trainer_resume_restores_params_state_moments_and_step_in_place(tmp_path):
+    src = _trained(_tconfig(), 5, steps=2)
+    src.save(str(tmp_path))
+    dst = TTrainer(TMagma(_tconfig(), seed=6, device="cpu"), _tconfig())
+    live = dict(tree_items(dst.params))
+    assert dst.load(str(tmp_path / "nothing")) == 0 and dst.global_step == 0
+    assert dst.load(str(tmp_path)) == 2 and dst.global_step == 2
+    for name in ("params", "state"):
+        want = dict(tree_items(getattr(src, name)))
+        have = dict(tree_items(getattr(dst, name)))
+        assert have.keys() == want.keys(), name
+        for k, t in have.items():
+            assert t.dtype == want[k].dtype and torch.equal(t, want[k]), (name, k)
+    assert all(t is live[k] for k, t in tree_items(dst.params))  # copied in place
+    want, have = src.optimizer.state_dict(), dst.optimizer.state_dict()
+    for moment in ("mu", "nu"):
+        assert have[moment].keys() == want[moment].keys()
+        assert all(torch.equal(t, want[moment][k]) for k, t in have[moment].items()), moment
+    assert [have[k] for k in ("count", "notfinite_count", "total_notfinite")] == \
+        [want[k] for k in ("count", "notfinite_count", "total_notfinite")] == [2, 0, 0]
+
+
+@pytest.fixture(scope="module")
+def v2_payload(tmp_path_factory):
+    """The checkpoint of a v2 Trainer after one step, as the file holds it."""
+    root = tmp_path_factory.mktemp("v2") / "run"
+    _trained(_tconfig(), 5, steps=1).save(str(root))
+    return torch.load(root / "step_1" / ckpt.CKPT_FILE, weights_only=True)
+
+
+# each fault's file -> what the error names
+FAULTS = {"extra_adapter": "params/lm/blocks/adapter_attn: not in the model",
+          "missing_leaf": "params/lm/blocks/adapter_mlp/up/bias: not in the file",
+          "broadcast_shape": "params/lm/blocks/adapter_mlp/down/bias: (1, 32)",
+          "broadcast_moment": "opt_state/mu/lm/blocks/adapter_attn/up/bias: (1, 128)"}
+
+
+@pytest.mark.parametrize("fault", list(FAULTS))
+def test_resume_refuses_a_checkpoint_of_another_layout(v2_payload, tmp_path, fault):
+    """Each file resumed wrongly before the checked restore (the extra key
+    dropped, the missing one a bare KeyError, the broadcastable shapes
+    broadcast into the live tensors).  ``restore_params`` refuses the same
+    params; it reads no optimizer state."""
+    leaf = FAULTS[fault]
+    payload = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, v2_payload)
+    blocks = payload["params"]["lm"]["blocks"]
+    if fault == "missing_leaf":
+        del blocks["adapter_mlp"]["up"]["bias"]
+    elif fault == "broadcast_shape":
+        blocks["adapter_mlp"]["down"]["bias"] = blocks["adapter_mlp"]["down"]["bias"][:1]
+    elif fault == "broadcast_moment":
+        mu = payload["opt_state"]["mu"]
+        mu["lm/blocks/adapter_attn/up/bias"] = mu["lm/blocks/adapter_attn/up/bias"][:1]
+    ckpt.save_checkpoint(str(tmp_path), 1, payload["params"], payload["state"],
+                         payload["opt_state"])
+    cfg = _tconfig(adapters=V1_ADAPTERS) if fault == "extra_adapter" else _tconfig()
+    trainer = TTrainer(TMagma(cfg, seed=6, device="cpu"), cfg)
+    before = {k: t.clone() for k, t in tree_items(trainer.params)}
+    moments = [t.clone() for t in trainer.optimizer.mu]
+    with pytest.raises(ValueError, match=re.escape(leaf)):
+        trainer.load(str(tmp_path))
+    assert trainer.global_step == 0
+    assert all(torch.equal(t, before[k]) for k, t in tree_items(trainer.params))
+    assert all(torch.equal(a, b) for a, b in zip(trainer.optimizer.mu, moments))
+    template = TMagma(cfg, seed=6, device="cpu")
+    if fault == "broadcast_moment":
+        ckpt.restore_params(str(tmp_path), template.params, template.state)
+        assert torch.equal(template.params["lm"]["blocks"]["adapter_attn"]["up"]["bias"],
+                           v2_payload["params"]["lm"]["blocks"]["adapter_attn"]["up"]["bias"])
+    else:
+        with pytest.raises(ValueError, match=re.escape(leaf)):
+            ckpt.restore_params(str(tmp_path), template.params, template.state)

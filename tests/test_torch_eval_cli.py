@@ -9,9 +9,12 @@ package's, on the CPU at a tiny width.
   on a CPU profile of the port's own trace;
 * the CLI: ``python -m magma_tpu_torch.train`` on a tiny yml runs its
   steps, logs JSONL (losses, eval loss, captions, image grid, VQA), saves,
-  and resumes at the saved step.
+  and resumes at the saved step; on v2's shape (two training directories,
+  the eval set held out of both, GQA beside VQA) its split equals the JAX
+  CLI's index for index.
 """
 
+import importlib.util
 import json
 import random
 import subprocess
@@ -168,16 +171,29 @@ def test_summarize_trace_on_a_cpu_profile(tmp_path):
         tobs.summarize_trace(str(tmp_path / "none"))
 
 
-def _cli_yml(tmp_path, train_steps, load):
+def _cli_yml(tmp_path, train_steps, load, v2=False):
+    """A tiny yml of v1's shape (one training directory, the eval set held
+    out of it, VQA, checkpoints) or, with ``v2``, of v2's (normal mlp and
+    attention adapters at k=8, ga 4, two training directories, the eval
+    set held out of both, VQA and GQA, no checkpoint)."""
     d = tmp_path
-    yml = d / f"tiny_{train_steps}.yml"
+    yml = d / f"tiny_{train_steps}{'_v2' if v2 else ''}.yml"
+    if v2:
+        adapters = ('{"mlp": {"adapter_type": "normal", "downsample_factor": 8}, '
+                    '"attention": {"adapter_type": "normal", "downsample_factor": 8}}')
+        shape = (f"gradient_accumulation_steps: 4, save: null, load: null, "
+                 f"train_dataset_dir: ['{d}/train', '{d}/train2'], gqa_dir: '{d}/gqa',")
+    else:
+        adapters = '{"mlp": {"adapter_type": "normal", "downsample_factor": 4}}'
+        load = f"'{d}/ckpt'" if load else "null"
+        shape = (f"gradient_accumulation_steps: 2, save_every: 2, save: '{d}/ckpt', "
+                 f"load: {load}, train_dataset_dir: '{d}/train',")
     yml.write_text(f"""{{
- encoder_name: 'clip_resnet_large', batch_size: 4, gradient_accumulation_steps: 2,
- train_steps: {train_steps}, log_every: 1, eval_every: 2, eval_steps: 1, save_every: 2,
- save: '{d}/ckpt', load: {f"'{d}/ckpt'" if load else 'null'},
- train_dataset_dir: '{d}/train', eval_dataset_dir: null, eval_dataset_pct: 0.25,
+ encoder_name: 'clip_resnet_large', batch_size: 4, {shape}
+ train_steps: {train_steps}, log_every: 1, eval_every: 2, eval_steps: 1,
+ eval_dataset_dir: null, eval_dataset_pct: 0.25,
  vqa_dir: '{d}/vqa', image_size: 64, num_workers: 2, warmup_num_steps: 1,
- adapter_config: {{"mlp": {{"adapter_type": "normal", "downsample_factor": 4}}}},
+ adapter_config: {adapters},
  use_image_embed_layernorm: true, image_embed_dropout_prob: 0.1,
  compute_dtype: 'float32', frozen_dtype: 'float32',
  lm_overrides: {{n_layers: 2, n_heads: 4, d_model: 128, d_ff: 512, rotary_dim: 16,
@@ -187,7 +203,21 @@ def _cli_yml(tmp_path, train_steps, load):
     return str(yml)
 
 
+def _split_paths(train_ds, eval_ds):
+    """The json path of every sample of a held-out split, in order: each
+    subset's index into the concatenated training directories."""
+    def path(concat, i):
+        k = int(np.searchsorted(concat._offsets, i, side="right")) - 1
+        return concat.datasets[k]._paths[i - int(concat._offsets[k])]
+
+    return [[path(ds.dataset, i) for i in ds.indices] for ds in (train_ds, eval_ds)]
+
+
 def test_train_cli_runs_logs_saves_and_resumes(tmp_path):
+    """v1's shape: steps, logs, saves, resumes at the saved step.  Then v2's
+    shape: its held-out split of two directories equals the JAX CLI's
+    (root ``train.py``) index for index, and VQA and GQA accuracy are
+    logged."""
     from magma_tpu_torch import train
 
     _write_dir(tmp_path / "train", 12, False, 3)
@@ -211,6 +241,25 @@ def test_train_cli_runs_logs_saves_and_resumes(tmp_path):
     log = [json.loads(x) for x in (ckpt / "metrics.jsonl").read_text().splitlines()]
     assert [m["step"] for m in log if "train/loss" in m] == [1, 2, 3, 4, 5, 6]
     assert (ckpt / "latest").read_text() == "step_6"
+
+    _write_dir(tmp_path / "train2", 7, False, 5)
+    _write_dir(tmp_path / "gqa", 3, True, 6)
+    yml = _cli_yml(tmp_path, 2, False, v2=True)
+    spec = importlib.util.spec_from_file_location("jax_train_cli", ROOT / "train.py")
+    jtrain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jtrain)
+    splits = [cli.get_pretraining_datasets(cfg.from_yml(yml), None, None, 64)
+              for cli, cfg in ((jtrain, JConfig), (train, TConfig))]
+    want, got = (_split_paths(*split) for split in splits)
+    assert [len(x) for x in got] == [15, 4] and got == want
+    assert [list(ds.indices) for ds in splits[1]] == [list(ds.indices) for ds in splits[0]]
+    v2 = train.main(["--config", yml, "--device", "cpu", "--log-dir", str(tmp_path / "v2")])
+    assert v2.global_step == 2 and v2.config.gradient_accumulation_steps == 4
+    assert "adapter_attn" in v2.params["lm"]["blocks"]
+    log = [json.loads(x) for x in (tmp_path / "v2" / "metrics.jsonl").read_text().splitlines()]
+    assert all(np.isfinite(m["train/loss"]) for m in log if "train/loss" in m)
+    for qa in ("vqa", "gqa"):
+        assert [m["step"] for m in log if f"eval/{qa}_accuracy" in m] == [2], qa
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):

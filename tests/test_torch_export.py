@@ -140,8 +140,9 @@ def test_serving_layouts_raise_naming_the_leaf():
 
 def test_converter_cli_writes_a_directory_from_checkpoint_loads(tmp_path):
     """``python -m magma_tpu_torch.convert`` in a subprocess (jax blocked) on
-    a tiny reference-named ``.pt``: the directory it writes restores through
-    ``Magma.from_checkpoint`` to the tensors of the ``.pt``."""
+    a tiny reference-named ``.pt``, asked for the CPU: the directory it
+    writes restores through ``Magma.from_checkpoint`` to the tensors of the
+    ``.pt``.  Not asked, it takes the card, and raises without CUDA."""
     _, tm = _pair("resnet_v2")
     sd = to_torch_state_dict(tm.params, tm.state, tm.lm_config, tm.prefix_config)
     torch.save({"module": sd}, tmp_path / "mp_rank_00_model_states.pt")
@@ -159,9 +160,14 @@ def test_converter_cli_writes_a_directory_from_checkpoint_loads(tmp_path):
 }""")
     code = ("import runpy, sys; sys.modules['jax'] = None\n"
             "runpy.run_module('magma_tpu_torch.convert', run_name='__main__', alter_sys=True)\n")
-    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "mp_rank_00_model_states.pt"),
-                          str(tmp_path / "out"), "--config", str(yml)],
-                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    args = [sys.executable, "-c", code, str(tmp_path / "mp_rank_00_model_states.pt"),
+            str(tmp_path / "out"), "--config", str(yml)]
+    if not torch.cuda.is_available():
+        out = subprocess.run(args, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0 and "CUDA is not available" in out.stderr, out.stderr
+        assert not (tmp_path / "out").exists()
+    out = subprocess.run(args + ["--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     assert (tmp_path / "out" / "latest").read_text() == "step_0"
     got = TMagma.from_checkpoint(yml, tmp_path / "out", device="cpu")

@@ -32,6 +32,7 @@ from magma_tpu.models import clip_resnet as jclip
 from magma_tpu.models import gptj as jgptj
 from magma_tpu.models import image_prefix as jip
 from magma_tpu.models.adapters import AdapterSpec as JAdapterSpec
+from magma_tpu.models.magma import Magma as JMagma
 from magma_tpu.ops import flash_attention as jflash
 from magma_tpu.ops import quant as jquant
 from magma_tpu.training import labels as jlabels
@@ -42,6 +43,7 @@ from magma_tpu_torch.models import clip_resnet as tclip
 from magma_tpu_torch.models import gptj as tgptj
 from magma_tpu_torch.models import image_prefix as tip
 from magma_tpu_torch.models.adapters import AdapterSpec as TAdapterSpec
+from magma_tpu_torch.models.magma import Magma as TMagma
 from magma_tpu_torch.ops import quant as tquant
 from magma_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd_plain
 from magma_tpu_torch.training import labels as tlabels
@@ -317,13 +319,49 @@ def _param_tree(r, dtype=np.float32):
     }
 
 
+# the whole trees of the other recipes at tiny widths: encoder_name,
+# encoder overrides, adapters, and the no-decay leaves of the tower
+LABEL_TREES = {
+    "v2": ("clip_resnet_large", dict(width=16, blocks=(1, 1, 1, 1), input_resolution=64),
+           {"mlp": {"adapter_type": "normal", "downsample_factor": 8},
+            "attention": {"adapter_type": "normal", "downsample_factor": 8}}, ()),
+    "vit": ("clip", dict(input_resolution=64, patch_size=16, width=32, layers=2, heads=4,
+                         embed_dim=24), None, ("pos_embed", "class_token")),
+    "nfresnet": ("nfresnet50", dict(width=8, blocks=(1, 2, 1, 1), input_resolution=64), None,
+                 ("skipinit_gain", "gain")),
+}
+
+
 def test_label_params_groups_equal():
+    """A hand-made tree, then the whole trees of v2's adapters, the ViT and
+    the NF-ResNet (JAX's from ``jax.eval_shape`` of its init: the paths,
+    not the values, decide a group)."""
     r = np.random.default_rng(7)
     p = _param_tree(r)
     want = dict(tree_items(jax.tree_util.tree_map(lambda x: x, joptim.label_params(p))))
     got = dict(tree_items(toptim.label_params(p)))
     assert got == want
     assert {"main_decay", "main_none", "img_enc_decay", "img_enc_none"} == set(got.values())
+    lm = dict(n_layers=2, n_heads=1, d_model=128, d_ff=512, rotary_dim=16, max_seq_len=64)
+    for name, (encoder, enc, adapters, no_decay) in LABEL_TREES.items():
+        kw = dict(batch_size=2, train_steps=1, encoder_name=encoder, lm_overrides=lm,
+                  image_size=64, use_image_embed_layernorm=True, freeze_img_encoder=False,
+                  **({"adapter_config": adapters} if adapters else {}))
+        jm = JMagma(JConfig(**kw, encoder_overrides=enc), init_weights=False)
+        key = jax.random.PRNGKey(0)
+        jtree = {"lm": jax.eval_shape(lambda k: jgptj.init_params(k, jm.lm_config), key),
+                 "image_prefix": jax.eval_shape(lambda k: jip.init_params(k, jm.prefix_config),
+                                                key)[0]}
+        want = dict(tree_items(jax.tree_util.tree_map(lambda x: x, joptim.label_params(jtree))))
+        got = dict(tree_items(toptim.label_params(
+            TMagma(TConfig(**kw, encoder_overrides=enc), device="cpu").params)))
+        assert got == want, name
+        assert {"main_decay", "main_none", "img_enc_decay", "img_enc_none"} == set(got.values())
+        for leaf in no_decay:
+            hits = [lb for path, lb in got.items() if path.split("/")[-1] == leaf]
+            assert hits and set(hits) == {"img_enc_none"}, (name, leaf)
+        if adapters:
+            assert any("adapter_attn" in path for path in got), name
 
 
 def _torch_tree(p):
