@@ -31,6 +31,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from magma_tpu_torch import observability as obs
 from magma_tpu_torch.config import MultimodalConfig
 from magma_tpu_torch.models import gptj, image_prefix as ip_mod
 from magma_tpu_torch.models.adapters import AdapterSpec
@@ -164,17 +165,18 @@ class Magma:
         from magma_tpu_torch.data.image_input import ImageInput
 
         out = list(input_list)
-        for i, inp in enumerate(out):
-            if isinstance(inp, str):
-                out[i] = self.tokenizer.encode(inp)
-            elif isinstance(inp, ImageInput):
-                out[i] = inp.get_transformed_image(transform_fn=self.transforms)
-            elif isinstance(inp, (np.ndarray, torch.Tensor)):
-                pass  # already a tensor
-            elif type(inp).__module__.startswith("PIL."):
-                out[i] = self.transforms(inp)
-            else:
-                raise TypeError(f"Invalid input type:{type(inp)}")
+        with obs.span("magma.preprocess"):
+            for i, inp in enumerate(out):
+                if isinstance(inp, str):
+                    out[i] = self.tokenizer.encode(inp)
+                elif isinstance(inp, ImageInput):
+                    out[i] = inp.get_transformed_image(transform_fn=self.transforms)
+                elif isinstance(inp, (np.ndarray, torch.Tensor)):
+                    pass  # already a tensor
+                elif type(inp).__module__.startswith("PIL."):
+                    out[i] = self.transforms(inp)
+                else:
+                    raise TypeError(f"Invalid input type:{type(inp)}")
         if embed:
             return self.embed(out)
         return out
@@ -184,19 +186,22 @@ class Magma:
         """2-D token arrays and 4-D image arrays -> one (b, s, d) embedding
         sequence, order preserved.  Parity: magma.py:195-212."""
         emb_list = []
-        for x in inputs:
-            x = torch.as_tensor(x, device=self.device)
-            if x.dim() == 2:
-                emb_list.append(gptj.embed_tokens(self.lm_config, self.params["lm"],
-                                                  x.long(), self.mesh))
-            elif x.dim() == 4:
-                emb, _ = ip_mod.apply(self.params["image_prefix"],
-                                      self.state["image_prefix"], x.float(),
-                                      self.prefix_config)
-                emb_list.append(emb)
-            else:
-                raise ValueError(f"Expected 2d or 4d tensor, got {x.dim()}d")
-        return torch.cat(emb_list, dim=1)
+        n_images = sum(1 for x in inputs if np.ndim(x) == 4)
+        with obs.span("magma.embed", images=n_images):
+            for x in inputs:
+                x = torch.as_tensor(x, device=self.device)
+                if x.dim() == 2:
+                    emb_list.append(gptj.embed_tokens(self.lm_config, self.params["lm"],
+                                                      x.long(), self.mesh))
+                elif x.dim() == 4:
+                    with obs.span("vision.prefix"):
+                        emb, _ = ip_mod.apply(self.params["image_prefix"],
+                                              self.state["image_prefix"], x.float(),
+                                              self.prefix_config)
+                    emb_list.append(emb)
+                else:
+                    raise ValueError(f"Expected 2d or 4d tensor, got {x.dim()}d")
+            return torch.cat(emb_list, dim=1)
 
     @torch.no_grad()
     def generate(
@@ -251,7 +256,9 @@ class Magma:
         )
         if timing is not None:
             timing["steps"] = steps
-        tokens = tokens.cpu().numpy()
+        with obs.span("magma.to_host"):
+            obs.count("lm.host_reads")
+            tokens = tokens.cpu().numpy()
         if not decode:
             return tokens
         return [

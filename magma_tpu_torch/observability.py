@@ -1,4 +1,5 @@
-"""Observability: profiler traces, step timing, rank-0 metric helpers.
+"""Observability: profiler traces, the program's spans and counters, rank-0
+metric helpers.
 
 Port of ``magma_tpu/observability.py``:
 
@@ -7,8 +8,8 @@ Port of ``magma_tpu/observability.py``:
   log directory, viewable in Perfetto or chrome://tracing,
 * ``summarize_trace``: the top device ops of such a trace by total time
   (the host ops when the trace holds no device op, as on the CPU),
-* ``StepTimer``: per-step wall time with p50/p95 summaries; it
-  synchronises the CUDA device it times before and after each step,
+* ``span``, ``count``, ``tracing``, ``take``, ``export_chrome_trace``: the
+  program's own tracer (below),
 * ``log_table``: wandb.Table when wandb is live, plaintext otherwise
   (parity: magma/utils.py:248-253),
 * ``make_grid``: a (b, 3, H, W) batch tiled into one image,
@@ -19,10 +20,12 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,45 +53,170 @@ def profile_trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{time.time_ns()}.json"))
 
 
-class StepTimer:
-    """Rolling wall-clock timing of steps: ``with timer: step()``.  On a
-    CUDA ``device`` the card is synchronised at both ends, so a step's time
-    includes the work it queued."""
+# ---------------------------------------------------------------------------
+# The program's spans and counters
+# ---------------------------------------------------------------------------
+# Tracing is on while a torch.profiler capture records, or inside ``with
+# tracing():``; otherwise ``span`` returns one shared no-op object after that
+# check (~0.1 us) and ``count`` returns at once.  A span enters
+# ``record_function`` only while a profiler records (even with the profiler
+# off one costs microseconds): there it lies on the kernels' timeline in the
+# profiler's trace.  Spans and counters stay in memory until ``take``.  The
+# timestamps are ``time.time_ns()``, the epoch clock of the profiler's Chrome
+# trace (an event starts at ``baseTimeNanoseconds + ts * 1000`` ns).
 
-    def __init__(self, window: int = 100, device=None):
-        self.window = window
-        self.device = torch.device(device) if device is not None else None
-        self._times: List[float] = []
-        self._t0: Optional[float] = None
+MAX_SPANS = 1 << 18  # kept until take(); past it "trace.dropped" counts the rest
 
-    def _sync(self):
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]  # the enclosing span on this thread
+    root: int              # the outermost enclosing span: shared by one request or step
+    attrs: Dict
+    thread: int            # the OS thread id, as the profiler's trace gives it
+
+
+class _Tracer:
+    """The process's tracing depth, kept spans and counters."""
+
+    def __init__(self):
+        self.depth = 0
+        self.spans: List[Span] = []
+        self.counters: Dict[str, int] = {}
+        self.lock = threading.Lock()
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+
+    def thread(self) -> Tuple[List, int]:
+        """This thread's stack of open spans and its OS thread id (read once:
+        reading it is a system call)."""
+        th = getattr(self.local, "th", None)
+        if th is None:
+            th = self.local.th = ([], threading.get_native_id())
+        return th
+
+    def add(self, name: str, n: int) -> None:
+        with self.lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    def keep(self, s: Span) -> None:
+        if len(self.spans) < MAX_SPANS:
+            self.spans.append(s)
+        else:
+            self.add("trace.dropped", 1)
+
+
+_TRACER = _Tracer()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _NoSpan:
+    __slots__ = ()
 
     def __enter__(self):
-        self._sync()
-        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self._sync()
-        self._times.append(time.perf_counter() - self._t0)
-        if len(self._times) > self.window:
-            self._times.pop(0)
+        return False
 
-    @property
-    def last(self) -> float:
-        return self._times[-1] if self._times else float("nan")
 
-    def summary(self) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        arr = np.asarray(self._times)
-        return {
-            "step_time_p50": float(np.percentile(arr, 50)),
-            "step_time_p95": float(np.percentile(arr, 95)),
-            "steps_per_sec": float(1.0 / np.mean(arr)),
-        }
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "root", "start", "rf", "stack", "tid")
+
+    def __init__(self, name: str, attrs: Dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        self.stack, self.tid = _TRACER.thread()
+        top = self.stack[-1] if self.stack else None
+        self.id = next(_TRACER.ids)
+        self.parent = top.id if top is not None else None
+        self.root = top.root if top is not None else self.id
+        self.stack.append(self)
+        self.rf = None
+        if _profiling():
+            from torch.profiler import record_function
+
+            self.rf = record_function(self.name)
+            self.rf.__enter__()
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        self.stack.pop()
+        _TRACER.keep(Span(self.name, self.start, end, self.id, self.parent, self.root,
+                          self.attrs, self.tid))
+        return False
+
+
+def enabled() -> bool:
+    """Whether spans and counters are recorded now."""
+    return bool(_TRACER.depth) or _profiling()
+
+
+def span(name: str, **attrs):
+    """``with span("lm.prefill", positions=s):`` records the block as a span
+    (name, start, end, its id, its parent's and its root's, ``attrs``) while
+    tracing is on; a shared no-op otherwise."""
+    if _TRACER.depth or _profiling():
+        return _Span(name, attrs)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on.  ``n`` is a host
+    integer: a counter never reads from the card, so a tensor is refused."""
+    if not (_TRACER.depth or _profiling()):
+        return
+    if isinstance(n, torch.Tensor):
+        raise TypeError(f"counter {name!r} takes a host integer, got a tensor")
+    _TRACER.add(name, int(n))
+
+
+@contextlib.contextmanager
+def tracing():
+    """Spans and counters are recorded inside the block, with no profiler."""
+    with _TRACER.lock:
+        _TRACER.depth += 1
+    try:
+        yield
+    finally:
+        with _TRACER.lock:
+            _TRACER.depth -= 1
+
+
+def take() -> Tuple[List[Span], Dict[str, int]]:
+    """The spans (in the order they ended) and counters kept so far; clears
+    both."""
+    with _TRACER.lock:
+        spans, counters = _TRACER.spans, _TRACER.counters
+        _TRACER.spans, _TRACER.counters = [], {}
+    return spans, counters
+
+
+def export_chrome_trace(path: str, spans: Sequence[Span], counters: Dict[str, int]) -> None:
+    """Write ``spans`` as Chrome-trace complete ("X") events and ``counters``
+    as counter ("C") events at the last span's end, in us on the epoch clock
+    (a profiler trace's events are on it after adding its
+    ``baseTimeNanoseconds`` / 1000), for Perfetto or chrome://tracing."""
+    pid = os.getpid()
+    events = [{"name": s.name, "ph": "X", "cat": "span", "ts": s.start_ns / 1e3,
+               "dur": (s.end_ns - s.start_ns) / 1e3, "pid": pid, "tid": s.thread,
+               "args": dict(s.attrs, id=s.id, parent=s.parent, root=s.root)} for s in spans]
+    at = max((s.end_ns for s in spans), default=time.time_ns()) / 1e3
+    events += [{"name": k, "ph": "C", "ts": at, "pid": pid, "args": {k: v}}
+               for k, v in sorted(counters.items())]
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
 
 
 def log_table(name: str, model_outputs: Sequence[str], gt_answers_list: Sequence,

@@ -43,6 +43,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from magma_tpu_torch import observability as obs
 from magma_tpu_torch.ops.quant import (INT4_GROUP, KERNEL_ALIGN, _boundary_compose,
                                        _check_cuda, _concrete_layer, _dual_int4_parts,
                                        _dual_w4a8_ok, _int4_dequant_product,
@@ -527,15 +528,16 @@ def decode_all_layers_kernel(fused0, x0, u0, sincos, k_cache, v_cache, kv_scales
     ``csrc/decode_layer.cu``, on the card.  Returns bf16 (y (1, D),
     k_new (L, 1, D), v_new (L, 1, D)).  Each launch adds one to
     ``decode_all_layers_kernel.launches``."""
-    L = k_cache.shape[0]
-    if w_in is None and L > 1:
-        raise ValueError("decode_all_layers needs w_in: layers 0..L-2 run the next in_proj")
-    y, _, _, k_new, v_new = _launch(
-        "all", fused_in=fused0, x=x0, u_in=u0, sincos=sincos, k_cache=k_cache, v_cache=v_cache,
-        kv_scales=kv_scales, cache_pos=cache_pos, w_dual=w_dual, w_in=w_in, b_fc_in=b_fc_in,
-        b_fc_out=b_fc_out, ln_g=ln_g, ln_b=ln_b, l0=0, l1=L, in_until=L - 1, n_heads=n_heads,
-        fz_attn=fz_attn, attn_src=attn_src, fz_mlp=fz_mlp, mlp_src=mlp_src, o_bias=o_bias,
-        scale=scale, ln_eps=ln_eps)
+    with obs.span("kernel.k8", M=x0.shape[0]):
+        L = k_cache.shape[0]
+        if w_in is None and L > 1:
+            raise ValueError("decode_all_layers needs w_in: layers 0..L-2 run the next in_proj")
+        y, _, _, k_new, v_new = _launch(
+            "all", fused_in=fused0, x=x0, u_in=u0, sincos=sincos, k_cache=k_cache, v_cache=v_cache,
+            kv_scales=kv_scales, cache_pos=cache_pos, w_dual=w_dual, w_in=w_in, b_fc_in=b_fc_in,
+            b_fc_out=b_fc_out, ln_g=ln_g, ln_b=ln_b, l0=0, l1=L, in_until=L - 1, n_heads=n_heads,
+            fz_attn=fz_attn, attn_src=attn_src, fz_mlp=fz_mlp, mlp_src=mlp_src, o_bias=o_bias,
+            scale=scale, ln_eps=ln_eps)
     decode_all_layers_kernel.launches += 1
     return y, k_new, v_new
 

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from magma_tpu_torch import observability as obs
 from magma_tpu_torch.ops.attention import NEG_INF
 
 SEQ_ALIGN = 128                  # the JAX wrapper's padding unit
@@ -270,10 +271,11 @@ def flash_attention_kernel(q, k, v, kv_len, *, scale, causal, q_offset):
     Returns (O (b, s_q, h, hd) bf16, lse (b, h, s_q) fp32).  Each launch
     adds one to ``flash_attention_kernel.launches``, and a launch of the
     wgmma body also to ``flash_attention_kernel.wgmma_launches``."""
-    kv_len = _check_kernel_inputs(q, k, v, kv_len, q_offset, (("q", q), ("k", k), ("v", v)))
-    b, s_q, h, hd = q.shape
-    wgmma = flash_fwd_takes_wgmma(b, h, s_q, k.shape[1], hd)
-    o, lse = _fwd_launch(wgmma, q, k, v, kv_len, scale=scale, causal=causal, q_offset=q_offset)
+    with obs.span("kernel.flash_fwd", M=q.shape[0] * q.shape[1]):
+        kv_len = _check_kernel_inputs(q, k, v, kv_len, q_offset, (("q", q), ("k", k), ("v", v)))
+        b, s_q, h, hd = q.shape
+        wgmma = flash_fwd_takes_wgmma(b, h, s_q, k.shape[1], hd)
+        o, lse = _fwd_launch(wgmma, q, k, v, kv_len, scale=scale, causal=causal, q_offset=q_offset)
     if b * h * s_q:
         flash_attention_kernel.launches += 1
         flash_attention_kernel.wgmma_launches += int(wgmma)
@@ -318,22 +320,23 @@ def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, di, kv_len, *, scale, causa
     q, dO (b, s_q, h, hd) and k, v (b, s_k, h, hd) bf16; lse and di (b, h,
     s_q) fp32.  Returns (dk, dv) contiguous bf16.  Raises on anything the
     kernel does not take.  Each launch adds one to ``.launches``."""
-    if do.shape != q.shape:
-        raise ValueError(f"dO {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
-    kv_len = _check_kernel_inputs(q, k, v, kv_len, q_offset,
-                                  (("q", q), ("k", k), ("v", v), ("dO", do)))
-    strides = _bwd_args(q, k, v, do, lse, di)
-    b, s_q, h, hd = q.shape
-    dk = torch.empty(k.shape, dtype=torch.bfloat16, device=q.device)
-    dv = torch.empty(k.shape, dtype=torch.bfloat16, device=q.device)
-    err = _bwd_fns()[0](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if kv_len is None else kv_len.data_ptr(), b, h, s_q, k.shape[1], hd, strides,
-        float(scale), int(bool(causal)), int(q_offset),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention dK/dV kernel launch failed: cudaError {err}")
+    with obs.span("kernel.flash_bwd_dkv", M=q.shape[0] * q.shape[1]):
+        if do.shape != q.shape:
+            raise ValueError(f"dO {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+        kv_len = _check_kernel_inputs(q, k, v, kv_len, q_offset,
+                                      (("q", q), ("k", k), ("v", v), ("dO", do)))
+        strides = _bwd_args(q, k, v, do, lse, di)
+        b, s_q, h, hd = q.shape
+        dk = torch.empty(k.shape, dtype=torch.bfloat16, device=q.device)
+        dv = torch.empty(k.shape, dtype=torch.bfloat16, device=q.device)
+        err = _bwd_fns()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr(), b, h, s_q, k.shape[1], hd, strides,
+            float(scale), int(bool(causal)), int(q_offset),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash attention dK/dV kernel launch failed: cudaError {err}")
     flash_attention_bwd_dkv_kernel.launches += 1
     return dk, dv
 
@@ -342,21 +345,22 @@ def flash_attention_bwd_dq_kernel(q, k, v, do, lse, di, kv_len, *, scale, causal
     """K9b: launch ``csrc/flash_attn_bwd.cu``'s dQ kernel, inputs as
     ``flash_attention_bwd_dkv_kernel``.  Returns dq contiguous bf16.  Each
     launch adds one to ``.launches``."""
-    if do.shape != q.shape:
-        raise ValueError(f"dO {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
-    kv_len = _check_kernel_inputs(q, k, v, kv_len, q_offset,
-                                  (("q", q), ("k", k), ("v", v), ("dO", do)))
-    strides = _bwd_args(q, k, v, do, lse, di)
-    b, s_q, h, hd = q.shape
-    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    err = _bwd_fns()[1](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(),
-        None if kv_len is None else kv_len.data_ptr(), b, h, s_q, k.shape[1], hd, strides,
-        float(scale), int(bool(causal)), int(q_offset),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention dQ kernel launch failed: cudaError {err}")
+    with obs.span("kernel.flash_bwd_dq", M=q.shape[0] * q.shape[1]):
+        if do.shape != q.shape:
+            raise ValueError(f"dO {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+        kv_len = _check_kernel_inputs(q, k, v, kv_len, q_offset,
+                                      (("q", q), ("k", k), ("v", v), ("dO", do)))
+        strides = _bwd_args(q, k, v, do, lse, di)
+        b, s_q, h, hd = q.shape
+        dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+        err = _bwd_fns()[1](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dq.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr(), b, h, s_q, k.shape[1], hd, strides,
+            float(scale), int(bool(causal)), int(q_offset),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash attention dQ kernel launch failed: cudaError {err}")
     flash_attention_bwd_dq_kernel.launches += 1
     return dq
 

@@ -53,6 +53,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from magma_tpu_torch import observability as obs
+
 FUSED_ADAPTER_MAX_ROWS = 64   # m above this (prefill) takes the dequantising matmul
 KERNEL_ALIGN = 128            # K and N must be multiples of this, as in JAX
 _INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()  # fp32(1/127)
@@ -286,7 +288,8 @@ def _int8_single(x2: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) -> torch.T
 def int8_matmul_kernel(x2: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """K2a: x2 (M, K) bf16 @ wq (K, N) int8 * s (N,) -> fp32 (M, N), on the
     card.  Each launch adds one to ``int8_matmul_kernel.launches``."""
-    out = _int8_single(x2, wq, s)
+    with obs.span("kernel.int8", M=x2.shape[0]):
+        out = _int8_single(x2, wq, s)
     int8_matmul_kernel.launches += 1
     return out
 
@@ -296,10 +299,11 @@ def int8_matmul_stacked_kernel(x2: torch.Tensor, wq: torch.Tensor, s: torch.Tens
     """K2b: layer ``layer_idx`` of stacked wq (L, K, N), s (L, N), read in
     place through the layer's view.  Counts in
     ``int8_matmul_stacked_kernel.launches``."""
-    if wq.dim() != 3 or s.dim() != 2:
-        raise ValueError(f"stacked weights must be (L, K, N) with (L, N) scales, got "
-                         f"{tuple(wq.shape)}, {tuple(s.shape)}")
-    out = _int8_single(x2, wq[layer_idx], s[layer_idx])
+    with obs.span("kernel.int8", M=x2.shape[0]):
+        if wq.dim() != 3 or s.dim() != 2:
+            raise ValueError(f"stacked weights must be (L, K, N) with (L, N) scales, got "
+                             f"{tuple(wq.shape)}, {tuple(s.shape)}")
+        out = _int8_single(x2, wq[layer_idx], s[layer_idx])
     int8_matmul_stacked_kernel.launches += 1
     return out
 
@@ -309,24 +313,25 @@ def dual_matmul_kernel(c2: torch.Tensor, h2: torch.Tensor, wq: torch.Tensor,
     """K4a: (c2 @ W[:Ko] * s[0], h2 @ W[Ko:] * s[1]) for layer ``layer_idx``
     of wq (L, Ko + Kf, N) int8, s (L, 2, N) fp32, in one launch.  Counts in
     ``dual_matmul_kernel.launches``."""
-    for name, t in (("ctx", c2), ("h", h2)):
-        _check_cuda(name, t, torch.bfloat16, c2.device)
-        _check_rows(name, t)
-    if c2.shape[0] != h2.shape[0]:
-        raise ValueError(f"ctx and h differ in rows: {c2.shape[0]} vs {h2.shape[0]}")
-    if wq.dim() != 3 or s.dim() != 3 or s.shape[1] != 2:
-        raise ValueError(f"dual payload must be q (L, Ko+Kf, N), s (L, 2, N), got "
-                         f"{tuple(wq.shape)}, {tuple(s.shape)}")
-    ko, kf = c2.shape[1], h2.shape[1]
-    wl, sl = wq[layer_idx], s[layer_idx]
-    if wl.shape[0] != ko + kf:
-        raise ValueError(f"payload has {wl.shape[0]} rows, ctx + h give {ko + kf}")
-    n = _check_weight("w_o", wl[:ko], sl[0], ko, c2.device)
-    _check_weight("w_f", wl[ko:], sl[1], kf, c2.device)
-    m = c2.shape[0]
-    a = torch.empty((m, n), dtype=torch.float32, device=c2.device)
-    mo = torch.empty((m, n), dtype=torch.float32, device=c2.device)
-    _launch_int8([(c2, wl[:ko], sl[0], a), (h2, wl[ko:], sl[1], mo)], m, n, c2.device)
+    with obs.span("kernel.int8", M=c2.shape[0]):
+        for name, t in (("ctx", c2), ("h", h2)):
+            _check_cuda(name, t, torch.bfloat16, c2.device)
+            _check_rows(name, t)
+        if c2.shape[0] != h2.shape[0]:
+            raise ValueError(f"ctx and h differ in rows: {c2.shape[0]} vs {h2.shape[0]}")
+        if wq.dim() != 3 or s.dim() != 3 or s.shape[1] != 2:
+            raise ValueError(f"dual payload must be q (L, Ko+Kf, N), s (L, 2, N), got "
+                             f"{tuple(wq.shape)}, {tuple(s.shape)}")
+        ko, kf = c2.shape[1], h2.shape[1]
+        wl, sl = wq[layer_idx], s[layer_idx]
+        if wl.shape[0] != ko + kf:
+            raise ValueError(f"payload has {wl.shape[0]} rows, ctx + h give {ko + kf}")
+        n = _check_weight("w_o", wl[:ko], sl[0], ko, c2.device)
+        _check_weight("w_f", wl[ko:], sl[1], kf, c2.device)
+        m = c2.shape[0]
+        a = torch.empty((m, n), dtype=torch.float32, device=c2.device)
+        mo = torch.empty((m, n), dtype=torch.float32, device=c2.device)
+        _launch_int8([(c2, wl[:ko], sl[0], a), (h2, wl[ko:], sl[1], mo)], m, n, c2.device)
     dual_matmul_kernel.launches += 1
     return a, mo
 
@@ -430,7 +435,8 @@ def fused_adapter_kernel(x2: torch.Tensor, fz: Dict, layer_idx: int) -> torch.Te
     """K5: the whole int8 bottleneck of layer ``layer_idx`` for x2 (m, D)
     bf16, m <= 64, in one cooperative launch -> fp32 (m, D).  Counts in
     ``fused_adapter_kernel.launches``."""
-    out = _adapter_launch(x2, fz, layer_idx)
+    with obs.span("kernel.adapter", M=x2.shape[0]):
+        out = _adapter_launch(x2, fz, layer_idx)
     fused_adapter_kernel.launches += 1
     return out
 
@@ -473,23 +479,24 @@ def int8_matmul_dx_kernel(g: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) ->
     fp32 = bf16(g s) @ wq^T, on the card (``csrc/int8_matmul_dx.cu``),
     reading wq in its stored layout.  A layer of a stacked payload is passed
     as its view.  Each launch adds one to ``int8_matmul_dx_kernel.launches``."""
-    _check_cuda("g", g, torch.float32, None)
-    if g.dim() != 2 or not g.is_contiguous() or g.data_ptr() % 16 or g.shape[0] == 0:
-        raise ValueError(f"g must be a contiguous 16-byte aligned (M, N) with M > 0, got "
-                         f"shape {tuple(g.shape)} strides {g.stride()}")
-    if wq.dim() != 2:
-        raise ValueError(f"w must be (K, N), got {tuple(wq.shape)}")
-    n = _check_weight("w", wq, s, wq.shape[0], g.device)
-    if s.data_ptr() % 16:  # the kernel copies the scales with 16-byte bulk copies
-        raise ValueError("w scales must have a 16-byte aligned base")
-    if g.shape[1] != n:
-        raise ValueError(f"g has {g.shape[1]} columns, w has N = {n}")
-    m, k = g.shape[0], wq.shape[0]
-    dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
-    err = _dx_fn()(g.data_ptr(), wq.data_ptr(), s.data_ptr(), dx.data_ptr(), m, n, k,
-                   torch.cuda.current_stream(g.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8 matmul dx kernel launch failed: cudaError {err}")
+    with obs.span("kernel.int8_dx", M=g.shape[0]):
+        _check_cuda("g", g, torch.float32, None)
+        if g.dim() != 2 or not g.is_contiguous() or g.data_ptr() % 16 or g.shape[0] == 0:
+            raise ValueError(f"g must be a contiguous 16-byte aligned (M, N) with M > 0, got "
+                             f"shape {tuple(g.shape)} strides {g.stride()}")
+        if wq.dim() != 2:
+            raise ValueError(f"w must be (K, N), got {tuple(wq.shape)}")
+        n = _check_weight("w", wq, s, wq.shape[0], g.device)
+        if s.data_ptr() % 16:  # the kernel copies the scales with 16-byte bulk copies
+            raise ValueError("w scales must have a 16-byte aligned base")
+        if g.shape[1] != n:
+            raise ValueError(f"g has {g.shape[1]} columns, w has N = {n}")
+        m, k = g.shape[0], wq.shape[0]
+        dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
+        err = _dx_fn()(g.data_ptr(), wq.data_ptr(), s.data_ptr(), dx.data_ptr(), m, n, k,
+                       torch.cuda.current_stream(g.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"int8 matmul dx kernel launch failed: cudaError {err}")
     int8_matmul_dx_kernel.launches += 1
     return dx
 

@@ -37,8 +37,10 @@ from __future__ import annotations
 import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from magma_tpu_torch import observability as obs
 from magma_tpu_torch.parallel.mesh import broadcast
 from magma_tpu_torch.utils import round_up
 
@@ -190,49 +192,82 @@ def generate_tokens(
     from magma_tpu_torch.models import gptj
 
     b, s, _ = embeddings.shape
-    dev = embeddings.device
-    t_start = _mark(dev) if timing is not None else None
-    if prompt_len is None:
-        prompt_len = s
-    prompt_len = torch.as_tensor(prompt_len, device=dev).to(torch.int32)
-    prompt_len = prompt_len.reshape(-1).expand(b)
+    with obs.span("lm.generate", b=b, positions=s):
+        dev = embeddings.device
+        t_start = _mark(dev) if timing is not None else None
+        if prompt_len is None:
+            prompt_len = s
+        _count_prompt(prompt_len, b, s)
+        prompt_len = torch.as_tensor(prompt_len, device=dev).to(torch.int32)
+        prompt_len = prompt_len.reshape(-1).expand(b)
 
-    # cache length rounded up to 64, as the JAX package sizes it
-    max_len = round_up(s + max_steps, 64)
-    if gptj._sp_cache_active(cfg, mesh):
-        max_len = round_up(max_len, mesh.size(cfg.sp_axis))
-    cache = gptj.init_kv_cache(cfg, b, max_len, device=dev, mesh=mesh)
+        with obs.span("lm.prefill", positions=s):
+            # cache length rounded up to 64, as the JAX package sizes it
+            max_len = round_up(s + max_steps, 64)
+            if gptj._sp_cache_active(cfg, mesh):
+                max_len = round_up(max_len, mesh.size(cfg.sp_axis))
+            cache = gptj.init_kv_cache(cfg, b, max_len, device=dev, mesh=mesh)
 
-    hidden, cache = gptj.forward(cfg, params, embeddings, cache=cache,
-                                 cache_index=0, kv_len=prompt_len,
-                                 return_hidden=True, mesh=mesh)
-    last = gptj.lm_head(cfg, params, _last_true_hidden(hidden, prompt_len), mesh)[:, 0]
-    t_prefill = _mark(dev) if timing is not None else None
+            hidden, cache = gptj.forward(cfg, params, embeddings, cache=cache,
+                                         cache_index=0, kv_len=prompt_len,
+                                         return_hidden=True, mesh=mesh)
+            last = gptj.lm_head(cfg, params, _last_true_hidden(hidden, prompt_len), mesh)[:, 0]
+        t_prefill = _mark(dev) if timing is not None else None
 
-    tokens = torch.full((b, max_steps), eos_token, dtype=torch.long, device=dev)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    cur_len = prompt_len.clone()
-    step = 0
-    while step < max_steps:
-        tok = sample_token(generator, last, temperature=temperature, top_k=top_k,
-                           top_p=top_p, vocab_size=cfg.vocab_size,
-                           top_p_mode=top_p_mode)
-        tok = broadcast(torch.where(done, eos_token, tok), mesh, ("tp", "sp"))
-        tokens[:, step] = tok
-        done = done | (tok == eos_token)
-        step += 1
-        if step == max_steps or bool(done.all()):
-            break
-        emb = gptj.embed_tokens(cfg, params, tok[:, None], mesh)
-        logits, cache = gptj.forward(cfg, params, emb, cache=cache, cache_index=cur_len,
-                                     mesh=mesh)
-        last = logits[:, -1]
-        cur_len = cur_len + 1
-    if timing is not None:
-        t_end = _mark(dev)
-        timing["prefill_ms"] = _elapsed_ms(t_start, t_prefill)
-        timing["decode_ms"] = _elapsed_ms(t_prefill, t_end)
+        tokens = torch.full((b, max_steps), eos_token, dtype=torch.long, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        cur_len = prompt_len.clone()
+        step = 0
+        while step < max_steps:
+            with obs.span("lm.decode_step", step=step):
+                with obs.span("lm.sample"):
+                    tok = sample_token(generator, last, temperature=temperature, top_k=top_k,
+                                       top_p=top_p, vocab_size=cfg.vocab_size,
+                                       top_p_mode=top_p_mode)
+                tok = broadcast(torch.where(done, eos_token, tok), mesh, ("tp", "sp"))
+                tokens[:, step] = tok
+                done = done | (tok == eos_token)
+                step += 1
+                obs.count("lm.decode_steps")
+                if step == max_steps:
+                    break
+                with obs.span("lm.eos_check"):
+                    obs.count("lm.host_reads")
+                    if bool(done.all()):
+                        break
+                with obs.span("lm.decode_forward"):
+                    emb = gptj.embed_tokens(cfg, params, tok[:, None], mesh)
+                    logits, cache = gptj.forward(cfg, params, emb, cache=cache,
+                                                 cache_index=cur_len, mesh=mesh)
+                last = logits[:, -1]
+                cur_len = cur_len + 1
+        if timing is not None:
+            t_end = _mark(dev)
+            _read_timing(timing, t_start, t_prefill, t_end)
     return tokens, step
+
+
+def _count_prompt(prompt_len, b: int, s: int) -> None:
+    """The counters of a prefill over ``s`` positions a row: its positions and,
+    from a host ``prompt_len`` (int or (b,)), the true ones (a device tensor
+    is not read)."""
+    if not obs.enabled():
+        return
+    obs.count("lm.prefill_positions", b * s)
+    if isinstance(prompt_len, torch.Tensor):
+        if prompt_len.device.type != "cpu":
+            return
+        prompt_len = prompt_len.tolist()
+    obs.count("lm.prompt_positions", int(np.broadcast_to(np.asarray(prompt_len), (b,)).sum()))
+
+
+def _read_timing(timing: dict, t_start, t_prefill, t_end) -> None:
+    """``timing``'s stage times from the marks (on the card one wait, at the
+    end)."""
+    if not isinstance(t_end, float):
+        obs.count("lm.host_reads")
+    timing["prefill_ms"] = _elapsed_ms(t_start, t_prefill)
+    timing["decode_ms"] = _elapsed_ms(t_prefill, t_end)
 
 
 def _last_true_hidden(hidden: torch.Tensor, prompt_len: torch.Tensor) -> torch.Tensor:
@@ -273,24 +308,29 @@ def _split_prefill_chunk(cfg, params, emb_chunk, cache, last_h, offset: int, pro
 
 
 def _split_window(cfg, params, cache, last_logits, done, cur_len, generator, *, window,
-                  temperature, top_k, top_p, eos_token, top_p_mode):
+                  temperature, top_k, top_p, eos_token, top_p_mode, first=0):
     """``window`` decode steps: ``generate_tokens``'s loop body (the same
     draws in the same order, the same EOS holding), each step's forward run
-    whatever ``done`` says.  Returns (cache, last logits, done, cur_len,
-    tokens (b, window))."""
+    whatever ``done`` says; ``first`` numbers the steps' spans.  Returns
+    (cache, last logits, done, cur_len, tokens (b, window))."""
     from magma_tpu_torch.models import gptj
 
     toks = []
-    for _ in range(window):
-        tok = sample_token(generator, last_logits, temperature=temperature, top_k=top_k,
-                           top_p=top_p, vocab_size=cfg.vocab_size, top_p_mode=top_p_mode)
-        tok = torch.where(done, eos_token, tok)
-        done = done | (tok == eos_token)
-        toks.append(tok)
-        emb = gptj.embed_tokens(cfg, params, tok[:, None])
-        logits, cache = gptj.forward(cfg, params, emb, cache=cache, cache_index=cur_len)
-        last_logits = logits[:, -1]
-        cur_len = cur_len + 1
+    for i in range(window):
+        with obs.span("lm.decode_step", step=first + i):
+            with obs.span("lm.sample"):
+                tok = sample_token(generator, last_logits, temperature=temperature, top_k=top_k,
+                                   top_p=top_p, vocab_size=cfg.vocab_size,
+                                   top_p_mode=top_p_mode)
+            tok = torch.where(done, eos_token, tok)
+            done = done | (tok == eos_token)
+            toks.append(tok)
+            obs.count("lm.decode_steps")
+            with obs.span("lm.decode_forward"):
+                emb = gptj.embed_tokens(cfg, params, tok[:, None])
+                logits, cache = gptj.forward(cfg, params, emb, cache=cache, cache_index=cur_len)
+            last_logits = logits[:, -1]
+            cur_len = cur_len + 1
     return cache, last_logits, done, cur_len, torch.stack(toks, dim=1)
 
 
@@ -325,49 +365,54 @@ def generate_tokens_split(
     from magma_tpu_torch.models import gptj
 
     b, s, D = embeddings.shape
-    dev = embeddings.device
-    t_start = _mark(dev) if timing is not None else None
-    if prompt_len is None:
-        prompt_len = s
-    prompt_len = torch.as_tensor(prompt_len, device=dev).to(torch.int32).reshape(-1).expand(b)
+    with obs.span("lm.generate", b=b, positions=s):
+        dev = embeddings.device
+        t_start = _mark(dev) if timing is not None else None
+        if prompt_len is None:
+            prompt_len = s
+        C = prefill_chunk if prefill_chunk and s > prefill_chunk else 0
+        positions = round_up(s, C) if C else s  # the padded last chunk writes up to here
+        _count_prompt(prompt_len, b, positions)
+        prompt_len = torch.as_tensor(prompt_len, device=dev).to(torch.int32).reshape(-1).expand(b)
 
-    if prefill_chunk and s > prefill_chunk:
-        C = prefill_chunk
-        n_chunks = -(-s // C)
-        # the padded last chunk writes up to n_chunks * C
-        cache = gptj.init_kv_cache(cfg, b, round_up(max(s + max_steps, n_chunks * C), 64),
-                                   device=dev)
-        last_h = torch.zeros((b, 1, D), dtype=cfg.compute_dtype, device=dev)
-        for ci in range(n_chunks):
-            emb_c = embeddings[:, ci * C:(ci + 1) * C]
-            if emb_c.shape[1] < C:
-                emb_c = torch.nn.functional.pad(emb_c, (0, 0, 0, C - emb_c.shape[1]))
-            cache, last_h = _split_prefill_chunk(cfg, params, emb_c, cache, last_h, ci * C,
-                                                 prompt_len, chunk=C)
-        last = gptj.lm_head(cfg, params, last_h)[:, 0]
-    else:
-        cache, last = _split_prefill(cfg, params, embeddings, prompt_len, max_steps=max_steps)
-    t_prefill = _mark(dev) if timing is not None else None
+        with obs.span("lm.prefill", positions=positions):
+            if C:
+                cache = gptj.init_kv_cache(cfg, b, round_up(max(s + max_steps, positions), 64),
+                                           device=dev)
+                last_h = torch.zeros((b, 1, D), dtype=cfg.compute_dtype, device=dev)
+                for ci in range(positions // C):
+                    with obs.span("lm.prefill_chunk", chunk=ci):
+                        emb_c = embeddings[:, ci * C:(ci + 1) * C]
+                        if emb_c.shape[1] < C:
+                            emb_c = torch.nn.functional.pad(emb_c, (0, 0, 0, C - emb_c.shape[1]))
+                        cache, last_h = _split_prefill_chunk(cfg, params, emb_c, cache, last_h,
+                                                             ci * C, prompt_len, chunk=C)
+                last = gptj.lm_head(cfg, params, last_h)[:, 0]
+            else:
+                cache, last = _split_prefill(cfg, params, embeddings, prompt_len,
+                                             max_steps=max_steps)
+        t_prefill = _mark(dev) if timing is not None else None
 
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    cur_len = prompt_len.clone()
-    out, step = [], 0
-    while step < max_steps:
-        w = min(window, max_steps - step)
-        cache, last, done, cur_len, toks = _split_window(
-            cfg, params, cache, last, done, cur_len, generator, window=w,
-            temperature=temperature, top_k=top_k, top_p=top_p, eos_token=eos_token,
-            top_p_mode=top_p_mode)
-        out.append(toks)
-        step += w
-        if bool(done.all()):
-            break
-    tokens = torch.full((b, max_steps), eos_token, dtype=torch.long, device=dev)
-    tokens[:, :step] = torch.cat(out, dim=1)
-    if timing is not None:
-        t_end = _mark(dev)
-        timing["prefill_ms"] = _elapsed_ms(t_start, t_prefill)
-        timing["decode_ms"] = _elapsed_ms(t_prefill, t_end)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        cur_len = prompt_len.clone()
+        out, step = [], 0
+        while step < max_steps:
+            w = min(window, max_steps - step)
+            cache, last, done, cur_len, toks = _split_window(
+                cfg, params, cache, last, done, cur_len, generator, window=w, first=step,
+                temperature=temperature, top_k=top_k, top_p=top_p, eos_token=eos_token,
+                top_p_mode=top_p_mode)
+            out.append(toks)
+            step += w
+            with obs.span("lm.eos_check"):
+                obs.count("lm.host_reads")
+                if bool(done.all()):
+                    break
+        tokens = torch.full((b, max_steps), eos_token, dtype=torch.long, device=dev)
+        tokens[:, :step] = torch.cat(out, dim=1)
+        if timing is not None:
+            t_end = _mark(dev)
+            _read_timing(timing, t_start, t_prefill, t_end)
     return tokens, step
 
 

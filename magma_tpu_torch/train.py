@@ -17,13 +17,16 @@ checkpoints, metrics and prints come from rank 0 only.
 Metrics go to ``metrics.jsonl`` in ``--log-dir`` (default ``config.save``,
 else the working directory), with the image grids as PNGs beside it; the
 port has no wandb logging.  Each logged train step also records the
-time the loop waited on the loader (``train/loader_wait``).  ``main(argv)``
-runs in-process and returns the ``Trainer``.
+time the loop waited on the loader (``train/loader_wait``).  ``--trace``
+records the program's spans and counters (``observability.tracing``) and
+writes them at exit as a Chrome trace, ``spans_rank{r}.json`` beside the
+metrics.  ``main(argv)`` runs in-process and returns the ``Trainer``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -43,6 +46,9 @@ def parse_args(argv=None):
                         help="where metrics.jsonl goes (default: config.save, else .)")
     parser.add_argument("--multihost", action="store_true",
                         help="one process per rank, launched by torchrun")
+    parser.add_argument("--trace", action="store_true",
+                        help="record the program's spans and counters and write them to "
+                             "spans_rank{r}.json in the log directory at exit")
     return parser.parse_args(argv)
 
 
@@ -139,9 +145,10 @@ def main(argv=None):
     from magma_tpu_torch.data.transforms import get_transforms
     from magma_tpu_torch.evaluation import eval_vqa
     from magma_tpu_torch.models.magma import Magma
+    from magma_tpu_torch import observability
     from magma_tpu_torch.observability import make_grid
     from magma_tpu_torch.training.train_loop import Trainer
-    from magma_tpu_torch.utils import count_parameters, print_main
+    from magma_tpu_torch.utils import count_parameters, get_world_info, print_main
 
     config = MultimodalConfig.from_yml(args.config)
     config.print()
@@ -177,11 +184,14 @@ def main(argv=None):
         if not config.load_optimizer:
             trainer.global_step = global_step = 0
 
-    logger = MetricLogger(args.log_dir or config.save or ".")
+    log_dir = args.log_dir or config.save or "."
+    logger = MetricLogger(log_dir)
     print_main(f"training from step {global_step} to {config.train_steps}")
 
     t_interval = time.perf_counter()
     steps_in_interval, waited = 0, 0.0
+    traced = observability.tracing() if args.trace else contextlib.nullcontext()
+    traced.__enter__()
     try:
         while global_step < config.train_steps:
             t_wait = time.perf_counter()
@@ -232,6 +242,12 @@ def main(argv=None):
             trainer.save(config.save)
             print_main(f"saving model at end of training (step {global_step})")
     finally:
+        traced.__exit__(None, None, None)
+        if args.trace:
+            os.makedirs(log_dir, exist_ok=True)
+            path = os.path.join(log_dir, f"spans_rank{get_world_info()[1]}.json")
+            observability.export_chrome_trace(path, *observability.take())
+            print_main(f"spans written to {path}")
         train_loader.close()
         eval_loader.close()
         logger.close()

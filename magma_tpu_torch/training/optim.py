@@ -25,6 +25,7 @@ from typing import Callable, Dict, List
 
 import torch
 
+from magma_tpu_torch import observability as obs
 from magma_tpu_torch.config import MultimodalConfig
 from magma_tpu_torch.utils import tree_map, tree_paths
 
@@ -133,6 +134,7 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        obs.count("optim.tensors", len(grads))
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1)
         self.total_notfinite = torch.where(finite, self.total_notfinite,

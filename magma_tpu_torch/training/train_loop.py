@@ -49,6 +49,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from magma_tpu_torch import observability as obs
 from magma_tpu_torch.config import MultimodalConfig
 from magma_tpu_torch.parallel import sharding
 from magma_tpu_torch.parallel.mesh import all_reduce, make_mesh
@@ -103,10 +104,11 @@ class Trainer:
 
     def _batch(self, images, captions):
         """This rank's batch on the device."""
-        images = self._to_device(images).float()
-        captions = self._to_device(captions).long()
-        if self.config.run_blind:
-            images = torch.zeros_like(images)
+        with obs.span("train.batch"):
+            images = self._to_device(images).float()
+            captions = self._to_device(captions).long()
+            if self.config.run_blind:
+                images = torch.zeros_like(images)
         return images, captions
 
     def _sum_over_data(self, tensors):
@@ -139,26 +141,35 @@ class Trainer:
         state = self.state
         acc = loss_sum = None
         auxes = []
+        obs.count("train.micro_batches", n)
         for i in range(n):
-            loss, state, aux = micro_loss(i, state, gen)
-            auxes.append(aux)
-            grads = torch.autograd.grad(loss, tensors, allow_unused=True,
-                                        materialize_grads=True)
-            if n == 1:  # no fp32 accumulators: the grads are in the params' dtypes
-                acc, loss_sum = list(grads), loss.detach()
-            elif acc is None:
-                acc, loss_sum = [g.float() for g in grads], loss.detach()
-            else:
-                for a, g in zip(acc, grads):
-                    a.add_(g.float())
-                loss_sum = loss_sum + loss.detach()
-            del grads
+            with obs.span("train.micro", i=i):
+                with obs.span("train.forward"):
+                    loss, state, aux = micro_loss(i, state, gen)
+                auxes.append(aux)
+                with obs.span("train.backward"):
+                    grads = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                                materialize_grads=True)
+                with obs.span("train.accumulate"):
+                    if n == 1:  # no fp32 accumulators: the grads are in the params' dtypes
+                        acc, loss_sum = list(grads), loss.detach()
+                    elif acc is None:
+                        acc, loss_sum = [g.float() for g in grads], loss.detach()
+                    else:
+                        for a, g in zip(acc, grads):
+                            a.add_(g.float())
+                        loss_sum = loss_sum + loss.detach()
+                del grads
         if n > 1:
-            acc = [(a / n).to(t.dtype) for a, t in zip(acc, tensors)]
-            loss_sum = loss_sum / n
-        acc = self._sum_over_data(acc)
-        loss_sum = all_reduce(loss_sum.clone(), self.model.mesh, ("dp", "sp"))
-        self.optimizer.step(acc)
+            with obs.span("train.accumulate"):
+                acc = [(a / n).to(t.dtype) for a, t in zip(acc, tensors)]
+                loss_sum = loss_sum / n
+        if self.mesh.group(("dp", "sp")) is not None:  # else both are the tensors as they are
+            with obs.span("train.reduce"):
+                acc = self._sum_over_data(acc)
+                loss_sum = all_reduce(loss_sum.clone(), self.model.mesh, ("dp", "sp"))
+        with obs.span("train.optimizer"):
+            self.optimizer.step(acc)
         self.state = tree_map(lambda t: t.detach(), state)
         self.global_step += 1
         return loss_sum, auxes
@@ -170,18 +181,23 @@ class Trainer:
         float, or with ``sync=False`` a device scalar, so the host does not
         wait."""
         ga = self.config.gradient_accumulation_steps
-        if np.ndim(images) == 4:
-            images = images.reshape(ga, -1, *images.shape[1:])
-            captions = captions.reshape(ga, -1, captions.shape[-1])
-        images, captions = self._batch(images, captions)
+        with obs.span("train.step", step=self.global_step):
+            if np.ndim(images) == 4:
+                images = images.reshape(ga, -1, *images.shape[1:])
+                captions = captions.reshape(ga, -1, captions.shape[-1])
+            images, captions = self._batch(images, captions)
+            obs.count("train.samples", images.shape[0] * images.shape[1])
 
-        def micro(i, state, gen):
-            loss, (state, _) = self.model.loss_fn(self.params, state, images[i], captions[i],
-                                                  train=True, generator=gen)
-            return loss, state, None
+            def micro(i, state, gen):
+                loss, (state, _) = self.model.loss_fn(self.params, state, images[i],
+                                                      captions[i], train=True, generator=gen)
+                return loss, state, None
 
-        loss, _ = self._accumulate_and_step(images.shape[0], micro)
-        return float(loss) if sync else loss
+            loss, _ = self._accumulate_and_step(images.shape[0], micro)
+            if not sync:
+                return loss
+            with obs.span("train.loss_read"):
+                return float(loss)
 
     @torch.no_grad()
     def eval_step(self, eval_loader, eval_steps: Optional[int] = None) -> float:
@@ -224,23 +240,29 @@ class Trainer:
         Returns the global mean loss (and the global batch's accuracy) as
         floats."""
         ga = self.config.gradient_accumulation_steps
-        images, captions, labels = self._classification_batch(images, captions, class_labels)
+        with obs.span("train.step", step=self.global_step):
+            with obs.span("train.batch"):
+                images, captions, labels = self._classification_batch(images, captions,
+                                                                      class_labels)
+            obs.count("train.samples", captions.shape[0])
 
-        def split(t):  # (ga, micro / dp, ...)
-            return t.reshape(ga, -1, *t.shape[1:])
+            def split(t):  # (ga, micro / dp, ...)
+                return t.reshape(ga, -1, *t.shape[1:])
 
-        images, captions, labels = [split(i) for i in images], split(captions), split(labels)
+            images, captions, labels = [split(i) for i in images], split(captions), split(labels)
 
-        def micro(i, state, gen):
-            loss, (state, logits) = self.model.classification_loss_fn(
-                self.params, state, [img[i] for img in images], captions[i], labels[i],
-                train=True, generator=gen)
-            return loss, state, logits.detach()
+            def micro(i, state, gen):
+                loss, (state, logits) = self.model.classification_loss_fn(
+                    self.params, state, [img[i] for img in images], captions[i], labels[i],
+                    train=True, generator=gen)
+                return loss, state, logits.detach()
 
-        loss, logits = self._accumulate_and_step(ga, micro)
-        correct = (torch.cat(logits).argmax(-1) == labels.reshape(-1)).float().sum()
-        acc = all_reduce(correct, self.model.mesh, "dp") / (labels.numel() * self.mesh.size("dp"))
-        return (float(loss), float(acc)) if return_accuracy else float(loss)
+            loss, logits = self._accumulate_and_step(ga, micro)
+            correct = (torch.cat(logits).argmax(-1) == labels.reshape(-1)).float().sum()
+            acc = all_reduce(correct, self.model.mesh, "dp") / (labels.numel()
+                                                                * self.mesh.size("dp"))
+            with obs.span("train.loss_read"):
+                return (float(loss), float(acc)) if return_accuracy else float(loss)
 
     @torch.no_grad()
     def eval_step_classification(self, images, captions, class_labels,

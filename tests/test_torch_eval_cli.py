@@ -5,8 +5,8 @@ package's, on the CPU at a tiny width.
   identical to JAX's (the same weights, fp32, greedy, a ragged batch of
   right-padded prompts); ``eval_loss`` within 1e-4 relative (the two CLIP
   resizes differ by ~1e-5 a pixel, fp32 summed in another order);
-* observability: ``make_grid`` equal, ``StepTimer``, ``summarize_trace``
-  on a CPU profile of the port's own trace;
+* observability: ``make_grid`` equal, ``device_memory_stats``, ``log_table``,
+  ``summarize_trace`` on a CPU profile of the port's own trace;
 * the CLI: ``python -m magma_tpu_torch.train`` on a tiny yml runs its
   steps, logs JSONL (losses, eval loss, captions, image grid, VQA), saves,
   and resumes at the saved step; on v2's shape (two training directories,
@@ -138,15 +138,7 @@ def test_make_grid_equals_jax():
     np.testing.assert_array_equal(tobs.make_grid(torch.from_numpy(imgs), pad=2), want)
 
 
-def test_step_timer_memory_stats_and_log_table(capsys):
-    timer = tobs.StepTimer(window=3, device="cpu")
-    for _ in range(5):
-        with timer:
-            sum(range(1000))
-    s = timer.summary()
-    assert timer.last > 0 and len(timer._times) == 3
-    assert s["step_time_p50"] <= s["step_time_p95"] and s["steps_per_sec"] > 0
-    assert tobs.StepTimer().summary() == {}
+def test_memory_stats_and_log_table(capsys):
     if not torch.cuda.is_available():
         assert tobs.device_memory_stats() == {}
     tobs.log_table("vqa", ["a cat"], [["cat"]], 3)
