@@ -1665,24 +1665,33 @@ def _all_wrappers():
     return wrappers
 
 
+def _decode_forwards(steps):
+    """Decode forwards of a b=1 ``generate_tokens`` request of ``steps``
+    tokens out of ``MAX_STEPS`` over a fused layout (K8): one after each
+    sample but the last; after an EOS exit also the one queued before the
+    flag was read, which no sample reads."""
+    return steps - 1 if steps == MAX_STEPS else steps
+
+
 def _want_launches(bits, L, steps, rows, adapters=1):
     """Exact launches of one request of ``steps`` tokens (1 prefill of
-    ``rows`` padded positions + steps-1 decode forwards) over fused
+    ``rows`` padded positions + ``_decode_forwards(steps)``) over fused
     adapters (``adapters`` a layer: 1 in v1, 2 in v2), by wrapper."""
     from magma_tpu_torch.ops.quant import FUSED_ADAPTER_MAX_ROWS
 
+    fwd = _decode_forwards(steps)
     if bits == 8:
         # prefill: K2b and K4a once a layer; a decode step: K2b for layer
         # 0's in_proj, then one K8 for all layers; K2a once a forward
-        want = {"int8_matmul_stacked_kernel": L + steps - 1, "dual_matmul_kernel": L,
-                "int8_matmul_kernel": steps}
+        want = {"int8_matmul_stacked_kernel": L + fwd, "dual_matmul_kernel": L,
+                "int8_matmul_kernel": 1 + fwd}
     else:
         # the same with K3 and K4b; no K6
-        want = {"int4_matmul_stacked_kernel": L + steps - 1, "int4_dual_kernel": L,
-                "int8_matmul_kernel": steps}
+        want = {"int4_matmul_stacked_kernel": L + fwd, "int4_dual_kernel": L,
+                "int8_matmul_kernel": 1 + fwd}
     # the prefill's adapter: K5 up to 64 rows, else the dequantising matmul
     want["fused_adapter_kernel"] = adapters * L if rows <= FUSED_ADAPTER_MAX_ROWS else 0
-    want["decode_all_layers_kernel"] = steps - 1
+    want["decode_all_layers_kernel"] = fwd
     want["flash_attention_kernel"] = L
     return {k: want.get(k, 0) for k in _all_wrappers()}
 

@@ -656,6 +656,23 @@ def _declayer_ok(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, cache: Dict) ->
         has_bvecs=True)
 
 
+def fused_decode(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, cache: Optional[Dict],
+                 mesh=None, read_history: bool = False) -> Optional[str]:
+    """The fused decode that ``forward`` runs for ``x`` over ``cache``:
+    "declayer" (all layers in one K8 launch, ``_declayer_ok``), "boundary"
+    (one K6 launch a layer, ``_boundary_ok``) or None (layer by layer).  The
+    single-chip fused decodes assume the whole cache and in_proj are local:
+    they stand down under the sequence-sharded cache (and tp has no
+    in_proj), and for a chunk that reads history."""
+    if cache is None or read_history or _sp_cache_active(cfg, mesh):
+        return None
+    if _declayer_ok(cfg, blocks, x, cache):
+        return "declayer"
+    if _boundary_ok(cfg, blocks, x):
+        return "boundary"
+    return None
+
+
 def _run_decode_fused_layers(cfg: GPTJConfig, blocks: Dict, x: torch.Tensor, positions,
                              cache: Dict, cache_index):
     """A b=1 s=1 decode step with all layers in one launch
@@ -877,14 +894,11 @@ def forward(
 
     blocks = params["blocks"]
     sp_cache = _sp_cache_active(cfg, mesh)
-    # the single-chip fused decodes assume the whole cache and in_proj are
-    # local: they stand down under the sequence-sharded cache (and tp has no
-    # in_proj)
-    fused_ok = cache is not None and not read_history and not sp_cache
-    if fused_ok and _declayer_ok(cfg, blocks, x, cache):
+    fused = fused_decode(cfg, blocks, x, cache, mesh, read_history)
+    if fused == "declayer":
         x, k_news, v_news = _run_decode_fused_layers(cfg, blocks, x, positions, cache,
                                                      cache_index)
-    elif fused_ok and _boundary_ok(cfg, blocks, x):
+    elif fused == "boundary":
         x, k_news, v_news = _run_decode_boundary(cfg, blocks, x, sin, cos, cache, cache_index)
     elif cache is None and (cfg.remat if remat is None else remat) and torch.is_grad_enabled():
         for bp in _layer_views(blocks, cfg.n_layers):

@@ -15,10 +15,18 @@ the filters and ``strip_after_eos`` of ``magma_tpu/ops/sampling.py``
   EOS are held at EOS and the loop stops when every row is done.
 
 The loop is an eager Python loop that reads one flag from the device per
-step to stop early.  Sampling draws from an explicit ``torch.Generator``,
-so sampled tokens differ from the JAX package's for the same seed; greedy
-tokens do not.  A draw is ``torch.multinomial``'s own (exponential noise,
-then the argmax of p / q) without its checks, which read the device.
+step to stop early.  Where a decode step is one fused launch (K8 or K6,
+``gptj.fused_decode``) it reads the flag one step late: the flag of sample
+N is copied to the host without waiting, forward N is queued, and only
+then does the host wait for the copy, so the card runs forward N while the
+host prepares step N + 1.  Elsewhere (the bf16 tree, tensor-parallel and
+sequence-sharded meshes), whose steps the host is slower to launch than
+the card to run, the flag is read before forward N: there reading it late
+hides nothing, and an EOS exit would first pay a whole forward's launches.
+Sampling draws from an explicit ``torch.Generator``, so sampled tokens
+differ from the JAX package's for the same seed; greedy tokens do not.  A
+draw is ``torch.multinomial``'s own (exponential noise, then the argmax of
+p / q) without its checks, which read the device.
 
 ``sample_token_batched`` takes per-row (temperature, top_k, top_p) device
 tensors (the serving engine's mixed windows) with ``sample_token``'s
@@ -170,8 +178,8 @@ def generate_tokens(
     mesh=None,
 ) -> Tuple[torch.Tensor, int]:
     """KV-cached generation.  Returns (tokens (b, max_steps) int64 on the
-    embeddings' device, number of steps taken before early exit).
-    Positions after the early exit are EOS.
+    host, in pinned memory on a GPU; number of steps taken before early
+    exit).  Positions after the early exit are EOS.
 
     ``mesh`` (``parallel/``): ``params`` are this rank's shards.  With
     ``attention_impl="ring"`` and an sp axis > 1 the cache is sharded over
@@ -185,10 +193,26 @@ def generate_tokens(
     different lengths: each row decodes from its own last true position,
     padding is masked out of attention and cache writes land per row.
 
+    The early-exit flag: after sample N the loop stages ``done.all()`` and
+    the tokens so far for one non-blocking copy to pinned host memory and
+    records an event (``_Flag``); the tokens returned are that host copy.
+    Where ``gptj.fused_decode`` holds, it queues forward N before it waits
+    for the event; sample N + 1 is drawn only after that wait, so the
+    generator, the tokens and ``steps`` are those of reading the flag first.
+    When every row is then done, forward N is wasted: no sample reads it,
+    and the host does not wait for it, since the tokens were staged before
+    it.  Elsewhere the wait comes before forward N.  A ``max_steps`` exit
+    waits for the last staged copy alone.  The counters
+    ``lm.lookahead_forwards`` (forwards queued before their step's flag was
+    read) and ``lm.lookahead_wasted`` (at most one a call) say how often;
+    ``lm.host_reads`` counts each wait for a flag.
+
     ``timing``: a dict that receives ``prefill_ms`` (cache allocation,
     prefill and head) and ``decode_ms`` (every sampling step and the
-    ``steps - 1`` decode forwards), timed with CUDA events on a GPU and the
-    host clock on a CPU.  Reading them synchronises once, at the end."""
+    ``steps - 1`` decode forwards that a sample reads), timed with CUDA
+    events on a GPU and the host clock on a CPU.  ``decode_ms`` ends at the
+    last staged copy, so it leaves out a wasted forward.  Reading them
+    synchronises once, at the end."""
     from magma_tpu_torch.models import gptj
 
     b, s, _ = embeddings.shape
@@ -214,9 +238,10 @@ def generate_tokens(
             last = gptj.lm_head(cfg, params, _last_true_hidden(hidden, prompt_len), mesh)[:, 0]
         t_prefill = _mark(dev) if timing is not None else None
 
-        tokens = torch.full((b, max_steps), eos_token, dtype=torch.long, device=dev)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         cur_len = prompt_len.clone()
+        flag = _Flag(b, max_steps, eos_token, dev)
+        ahead = gptj.fused_decode(cfg, params["blocks"], embeddings[:, :1], cache, mesh) is not None
         step = 0
         while step < max_steps:
             with obs.span("lm.decode_step", step=step):
@@ -225,26 +250,73 @@ def generate_tokens(
                                        top_p=top_p, vocab_size=cfg.vocab_size,
                                        top_p_mode=top_p_mode)
                 tok = broadcast(torch.where(done, eos_token, tok), mesh, ("tp", "sp"))
-                tokens[:, step] = tok
+                flag.tokens[:, step] = tok
                 done = done | (tok == eos_token)
                 step += 1
                 obs.count("lm.decode_steps")
-                if step == max_steps:
+                flag.stage(done)
+                if step == max_steps or (not ahead and flag.all_done(wasted=False)):
                     break
-                with obs.span("lm.eos_check"):
-                    obs.count("lm.host_reads")
-                    if bool(done.all()):
-                        break
                 with obs.span("lm.decode_forward"):
+                    if ahead:
+                        obs.count("lm.lookahead_forwards")
                     emb = gptj.embed_tokens(cfg, params, tok[:, None], mesh)
                     logits, cache = gptj.forward(cfg, params, emb, cache=cache,
                                                  cache_index=cur_len, mesh=mesh)
                 last = logits[:, -1]
                 cur_len = cur_len + 1
+                if ahead and flag.all_done(wasted=True):
+                    break
+        tokens = flag.host_tokens()
         if timing is not None:
-            t_end = _mark(dev)
-            _read_timing(timing, t_start, t_prefill, t_end)
+            _read_timing(timing, t_start, t_prefill, flag.mark)
     return tokens, step
+
+
+class _Flag:
+    """``generate_tokens``' early-exit flag.  Each step stages ``done.all()``
+    after the tokens so far in one device buffer (``tokens`` is a view of
+    it), copies the buffer to pinned host memory without waiting and
+    records an event (``mark``) after the copy; ``all_done`` waits on that
+    event, and the tokens returned are the host copy, older than any
+    forward queued after it.  The host buffer comes from PyTorch's caching
+    host allocator, which hands the same pinned block back call after call
+    (no ``cudaHostAlloc`` a request).  On the CPU the copy is a plain one
+    and ``mark`` the host clock."""
+
+    def __init__(self, b: int, max_steps: int, eos_token: int, dev: torch.device):
+        if max_steps < 1:
+            raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+        self.buf = torch.full((b * max_steps + 1,), eos_token, dtype=torch.long, device=dev)
+        self.tokens = self.buf[:-1].view(b, max_steps)
+        self.host = torch.empty(self.buf.shape, dtype=torch.long, pin_memory=dev.type == "cuda")
+        self.dev, self.mark = dev, None
+
+    def stage(self, done: torch.Tensor) -> None:
+        self.buf[-1] = done.all()
+        self.host.copy_(self.buf, non_blocking=True)
+        self.mark = _mark(self.dev)
+
+    def _wait(self) -> None:
+        if not isinstance(self.mark, float):
+            self.mark.synchronize()
+
+    def all_done(self, wasted: bool) -> bool:
+        """Is every row done at the last staged step?  ``wasted``: a forward
+        was queued after that step, which no sample will read if so."""
+        with obs.span("lm.eos_check"):
+            obs.count("lm.host_reads")
+            self._wait()
+            if not bool(self.host[-1]):
+                return False
+        if wasted:
+            obs.count("lm.lookahead_wasted")
+        return True
+
+    def host_tokens(self) -> torch.Tensor:
+        """The tokens as last staged, on the host."""
+        self._wait()
+        return self.host[:-1].view(self.tokens.shape)
 
 
 def _count_prompt(prompt_len, b: int, s: int) -> None:

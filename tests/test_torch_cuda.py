@@ -1092,6 +1092,114 @@ def test_gated_lm_decode_runs_through_k8(fmt, dev):
     assert got == [steps - 1, 0, 0, L, L + steps - 1]
 
 
+def _fused_decode_lm(fmt, dev):
+    """(cfg, params on ``dev``) whose b=1 decode step is fused: int8 at K8's
+    geometry (8 heads of 256: one K8 launch a step), int4 at head_dim 128
+    (layer 0's K3, then K6 once a layer)."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.models.adapters import AdapterSpec
+
+    if fmt == "int8":
+        cfg = gptj.GPTJConfig.tiny(n_layers=2, n_heads=8, d_model=2048, d_ff=2048,
+                                   rotary_dim=64, attention_impl="flash",
+                                   param_dtype=torch.bfloat16,
+                                   mlp_adapter=AdapterSpec("normal", 4))
+        quantize = gptj.quantize_lm_params
+    else:
+        cfg = gptj.GPTJConfig.tiny(d_model=512, n_heads=4, d_ff=2048, attention_impl="flash",
+                                   param_dtype=torch.bfloat16,
+                                   mlp_adapter=AdapterSpec("normal", 4))
+        quantize = gptj.quantize_lm_params_int4
+    params = gptj.init_params(torch.Generator().manual_seed(0), cfg)
+    for proj in ("down", "up"):  # trained-scale adapters so they matter
+        ad = params["blocks"]["adapter_mlp"][proj]
+        ad["kernel"] = torch.randn(ad["kernel"].shape, generator=torch.Generator().manual_seed(1)) * 0.05
+    return cfg, _to(quantize(params), dev)
+
+
+def _flag_first_greedy(cfg, params, emb, max_steps, eos_token):
+    """Greedy ``generate_tokens`` with the EOS flag read before each
+    forward: (tokens on the host, steps)."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.ops.sampling import sample_token
+
+    b, s, _ = emb.shape
+    cur_len = torch.full((b,), s, dtype=torch.int32, device=emb.device)
+    cache = gptj.init_kv_cache(cfg, b, -(-(s + max_steps) // 64) * 64, device=emb.device)
+    hidden, cache = gptj.forward(cfg, params, emb, cache=cache, cache_index=0, kv_len=cur_len,
+                                 return_hidden=True)
+    last = gptj.lm_head(cfg, params, hidden[:, -1:])[:, 0]
+    tokens = torch.full((b, max_steps), eos_token, dtype=torch.long, device=emb.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=emb.device)
+    for step in range(max_steps):
+        tok = sample_token(None, last, temperature=0.0, top_k=0, top_p=0.0,
+                           vocab_size=cfg.vocab_size)
+        tok = torch.where(done, eos_token, tok)
+        tokens[:, step] = tok
+        done = done | (tok == eos_token)
+        if step + 1 == max_steps or bool(done.all()):
+            return tokens.cpu(), step + 1
+        logits, cache = gptj.forward(cfg, params, gptj.embed_tokens(cfg, params, tok[:, None]),
+                                     cache=cache, cache_index=cur_len)
+        last = logits[:, -1]
+        cur_len = cur_len + 1
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"], ids=["k8", "k6"])
+def test_eos_exit_read_one_step_late_on_the_card(fmt, dev, monkeypatch):
+    """EOS forced at a step over a fused layout: ``generate_tokens`` (the
+    flag read after the next forward is queued) returns the tokens and
+    ``steps`` of the flag-first order, launches the one wasted forward, and
+    hands the tokens over on the host while that forward still runs (every
+    decode forward here first holds the stream ~50 ms)."""
+    from magma_tpu_torch.models import gptj
+    from magma_tpu_torch.ops import decode_layer as dl
+    from magma_tpu_torch.ops import quant
+    from magma_tpu_torch.ops.sampling import generate_tokens
+
+    max_steps = 8
+    cfg, params = _fused_decode_lm(fmt, dev)
+    emb = torch.randn((1, 40, cfg.d_model), generator=torch.Generator().manual_seed(2)).to(dev)
+    free, free_steps = generate_tokens(cfg, params, emb, None, max_steps=max_steps,
+                                       temperature=0.0, eos_token=-1)
+    assert free.device.type == "cpu" and free_steps == max_steps
+    row = free[0].tolist()
+    k = max(i for i in range(max_steps - 1) if row[i] not in row[:i])
+    want, want_steps = _flag_first_greedy(cfg, params, emb, max_steps, row[k])
+
+    if fmt == "int8":
+        kernels = (dl.decode_all_layers_kernel, quant.boundary_kernel,
+                   quant.int8_matmul_stacked_kernel, quant.int8_matmul_kernel)
+    else:
+        kernels = (dl.decode_all_layers_kernel, quant.boundary_kernel,
+                   quant.int4_matmul_stacked_kernel, quant.int8_matmul_kernel)
+    real = gptj.forward
+
+    def held(cfg_, params_, x, **kw):
+        if x.shape[1] == 1:
+            torch.cuda._sleep(100_000_000)
+        return real(cfg_, params_, x, **kw)
+
+    monkeypatch.setattr(gptj, "forward", held)
+    torch.cuda.synchronize()
+    before = [fn.launches for fn in kernels]
+    tokens, steps = generate_tokens(cfg, params, emb, None, max_steps=max_steps,
+                                    temperature=0.0, eos_token=row[k])
+    running = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    got = [fn.launches - b for fn, b in zip(kernels, before)]
+    assert running  # the tokens came back before the wasted forward ended
+    assert tokens.device.type == "cpu"
+    assert steps == want_steps == k + 1 < max_steps
+    assert torch.equal(tokens, want)
+    L = cfg.n_layers
+    forwards = steps  # steps - 1 that a sample reads, and the wasted one
+    if fmt == "int8":
+        assert got == [forwards, 0, L + forwards, 1 + forwards]
+    else:
+        assert got == [0, L * forwards, L + forwards, 1 + forwards]
+
+
 # ---------------------------------------------------------------------------
 # Training kernels: K9a/K9b (csrc/flash_attn_bwd.cu), K10
 # (csrc/int8_matmul_dx.cu)

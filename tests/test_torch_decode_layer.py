@@ -498,8 +498,9 @@ def _mm_config_kwargs(impl):
         frozen_dtype="float32", attention_impl=impl, encoder_overrides=ENC)
 
 
-@pytest.mark.parametrize("bits", [4, 8])
-def test_facade_greedy_tokens_over_an_int8_cache_identical_to_jax(bits, tmp_path):
+def _served_facade_pair(bits, tmp_path):
+    """(JAX Magma, port Magma) from one checkpoint, both after
+    ``quantize_for_serving(bits)``, and the embeddings of one request."""
     jm = JMagma(JConfig(**_mm_config_kwargs("xla")), rng=0)
     r = np.random.default_rng(0)
     jm.params = jax.tree_util.tree_map(
@@ -513,11 +514,45 @@ def test_facade_greedy_tokens_over_an_int8_cache_identical_to_jax(bits, tmp_path
     jm.quantize_for_serving(bits)
     tm.quantize_for_serving(bits)
     img = Image.fromarray(np.random.default_rng(7).integers(0, 256, (48, 80, 3), dtype=np.uint8))
-    emb = np.asarray(jm.preprocess_inputs([img, "Describe the painting:"]))
+    return jm, tm, np.asarray(jm.preprocess_inputs([img, "Describe the painting:"]))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_facade_greedy_tokens_over_an_int8_cache_identical_to_jax(bits, tmp_path):
+    jm, tm, emb = _served_facade_pair(bits, tmp_path)
     ref = jm.generate(jnp.asarray(emb), max_steps=16, temperature=0.0, decode=False)
     got = tm.generate(torch.from_numpy(np.array(emb, np.float32)), max_steps=16,
                       temperature=0.0, decode=False)
     np.testing.assert_array_equal(got, np.asarray(ref))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_greedy_eos_exit_over_an_int8_cache_identical_to_jax(bits, tmp_path):
+    """EOS forced at the last step before ``max_steps`` at which greedy
+    decoding first emits some token: the port's loop stops where JAX's does,
+    with the same tokens and ``steps``, both where it reads its flag one step
+    late (int4: a decode step is one K6 launch a layer) and where it reads
+    the flag first (int8 at head_dim 128: the per-layer chain)."""
+    jm, tm, emb = _served_facade_pair(bits, tmp_path)
+    jlm = jax.tree_util.tree_map(jnp.asarray, jm.params["lm"])
+    tlm, x = tm.params["lm"], torch.from_numpy(np.array(emb, np.float32))
+    cache = tgptj.init_kv_cache(tm.lm_config, 1, 64)
+    fused = tgptj.fused_decode(tm.lm_config, tlm["blocks"], x[:, :1], cache)
+    assert fused == ("boundary" if bits == 4 else None)
+
+    def both(eos):
+        ref, ref_steps = jgenerate(jm.lm_config, jlm, jnp.asarray(emb), jax.random.PRNGKey(0),
+                                   max_steps=16, temperature=0.0, eos_token=eos)
+        got, steps = tgenerate(tm.lm_config, tlm, x, None, max_steps=16, temperature=0.0,
+                               eos_token=eos)
+        return np.asarray(ref), int(ref_steps), got.numpy(), steps
+
+    _, _, row, _ = both(-1)
+    row = row[0].tolist()
+    k = max(i for i in range(1, 15) if row[i] not in row[:i])
+    ref, ref_steps, got, steps = both(row[k])
+    assert steps == ref_steps == k + 1
+    np.testing.assert_array_equal(got, ref)
 
 
 # ---------------------------------------------------------------------------
