@@ -26,29 +26,29 @@ from typing import Dict, List
 
 
 def served(cell, seed: int, sample: List, bank, device: str, control: bool = False) -> Dict:
-    """Readings of the served sample; with ``control`` also the control's:
+    """Readings of the served sample against the reference of the cell's
+    language-model family; with ``control`` also the control's:
     the gap of the token a reference in the nearest lower precision (int4
     weights) puts first."""
     import torch
 
     from portbench.harness import materialize
-    from portbench.reference import magma_ref
-    from portbench.weights import make_weights
+    from portbench.reference.magma_ref import gaps, strict_fp32
 
-    magma_ref.strict_fp32()
-    model = cell.config["model"]
-    weights = make_weights(model, seed, device)
+    strict_fp32()
+    fam, model = cell.family(), cell.config["model"]
+    weights = fam.make_weights(model, seed, device)
     with torch.no_grad():
-        embeds = [magma_ref.embed_prompt(weights, materialize(req, bank), model, device)
+        embeds = [fam.embed_prompt(weights, materialize(req, bank), model, device)
                   for req, _ in sample]
         tokens = [list(t) for _, t in sample]
-        logits = magma_ref.lm_logits(weights, model, embeds, tokens,
-                                     bits=cell.config["serving"]["bits"], head_bits=8)
-        out = {"logit_gap": float(magma_ref.gaps(logits, tokens).max())}
+        logits = fam.lm_logits(weights, model, embeds, tokens,
+                               bits=cell.config["serving"]["bits"], head_bits=8)
+        out = {"logit_gap": float(gaps(logits, tokens).max())}
         if control:
-            low = magma_ref.lm_logits(weights, model, embeds, tokens, bits=4, head_bits=8)
+            low = fam.lm_logits(weights, model, embeds, tokens, bits=4, head_bits=8)
             firsts = [lg.argmax(dim=-1).tolist() for lg in low]
-            out["control"] = {"logit_gap": float(magma_ref.gaps(logits, firsts).max())}
+            out["control"] = {"logit_gap": float(gaps(logits, firsts).max())}
     out["tokens_compared"] = sum(len(t) for t in tokens)
     out["requests_compared"] = len(tokens)
     return out
@@ -96,17 +96,18 @@ def train_readings(got: Dict, ref: Dict, init: Dict, stats0: Dict, exclude_below
 
 
 def train(cell, seed: int, trained: Dict, device: str, control: bool = False) -> Dict:
-    """The reference follows the steps set-up drove; with ``control`` also
-    the control (the reference with every product's operands in float8, the
-    precision below bf16) against it."""
+    """The reference of the cell's language-model family follows the steps
+    set-up drove; with ``control`` also the control (the reference with
+    every product's operands in float8, the precision below bf16) against
+    it."""
     import torch
 
     from portbench.feed import batch
-    from portbench.reference import magma_ref, train_ref
-    from portbench.weights import make_weights
+    from portbench.reference.magma_ref import strict_fp32
+    from portbench.reference.train_ref import paths
 
-    magma_ref.strict_fp32()
-    p, model = cell.params, cell.config["model"]
+    strict_fp32()
+    fam, p, model = cell.family(), cell.params, cell.config["model"]
     recipe = dict(cell.config["recipe"], ga=p["ga"], micro_batch=p["micro_batch"],
                   image_side=p["image_side"])
     steps = len(trained["losses"])
@@ -114,15 +115,13 @@ def train(cell, seed: int, trained: Dict, device: str, control: bool = False) ->
     batches = [batch(p, seed, k, seq, model["eos_token"]) for k in range(steps)]
 
     def reference(low_precision=False):
-        weights = make_weights(model, seed, device)
-        return train_ref.run_steps(weights, model, recipe, batches, seed, device, steps,
-                                   low_precision)
+        weights = fam.make_weights(model, seed, device)
+        return fam.run_steps(weights, model, recipe, batches, seed, device, steps,
+                             low_precision)
 
-    weights = make_weights(model, seed, device)
-    init = {k: t.detach().clone().float() for k, t in train_ref.paths(
-        {"lm": {"blocks": {k: v for k, v in weights["lm"]["blocks"].items() if "adapter" in k}},
-         "image_prefix": weights["image_prefix"]})}
-    stats0 = {k: t.clone() for k, t in train_ref.paths(weights["stats"]["enc"])}
+    weights = fam.make_weights(model, seed, device)
+    init = {k: t.detach().clone().float() for k, t in fam.trainable_init(weights).items()}
+    stats0 = {k: t.clone() for k, t in paths(weights["stats"]["enc"])}
     del weights
     with torch.enable_grad():
         ref = reference()

@@ -10,7 +10,7 @@ counts each input byte read once and each output byte written once.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
@@ -97,22 +97,29 @@ def tower_flops(tower: Dict, d_model: int) -> int:
     return flops + 2 * side * side * (w * 32) * d_model
 
 
-def flash_fwd(b: int, s_q: int, s_k: int, h: int, hd: int, causal: bool):
-    """K1: O = softmax(Q K^T) V for (b, s, h, hd) bf16 q, k, v, with its fp32
-    log-sum-exp; causal work is the lower triangle."""
+def flash_fwd(b: int, s_q: int, s_k: int, h: int, hd: int, causal: bool,
+              hd_v: Optional[int] = None):
+    """K1: O = softmax(Q K^T) V for (b, s, h, hd) bf16 q, k and (b, s, h,
+    hd_v) v (``hd_v`` defaults to ``hd``), with its fp32 log-sum-exp; causal
+    work is the lower triangle.  Q K^T counts ``hd``; P V, and the bytes of
+    v and o, count ``hd_v``."""
+    hd_v = hd if hd_v is None else hd_v
     frac = (s_k + 1) / (2 * s_k) if causal and s_q == s_k else 1.0
-    n_bytes = 2 * b * h * hd * (2 * s_q + 2 * s_k) + 4 * b * h * s_q
-    return n_bytes, 4 * b * h * s_q * s_k * hd * frac
+    n_bytes = 2 * b * h * (s_q + s_k) * (hd + hd_v) + 4 * b * h * s_q
+    return n_bytes, 2 * b * h * s_q * s_k * (hd + hd_v) * frac
 
 
-def flash_bwd(b: int, s_q: int, s_k: int, h: int, hd: int, causal: bool, products: int,
-              outputs: int):
+def flash_bwd(b: int, s_q: int, s_k: int, h: int, hd: int, causal: bool,
+              hd_v: Optional[int] = None, *, products: int, outputs: int):
     """K9a (``products`` 4: S, dP, dV, dK; ``outputs`` 2: dK, dV) or K9b (3:
-    S, dP, dQ; 1: dQ): q, k, v, dO in bf16 and lse, delta in fp32 read."""
+    S, dP, dQ; 1: dQ): q, k, v, dO in bf16 and lse, delta in fp32 read.
+    S = Q K^T and dK or dQ count ``hd``; dP = dO V^T and dV, and the bytes
+    of v, dO and dV, count ``hd_v`` (default ``hd``)."""
+    hd_v = hd if hd_v is None else hd_v
     frac = (s_k + 1) / (2 * s_k) if causal and s_q == s_k else 1.0
-    n_bytes = (2 * b * h * hd * (2 * s_q + 2 * s_k) + 8 * b * h * s_q
-               + 2 * b * h * hd * outputs * (s_k if outputs == 2 else s_q))
-    return n_bytes, products * 2 * b * h * s_q * s_k * hd * frac
+    written = s_k * (hd + hd_v) if outputs == 2 else s_q * hd
+    n_bytes = 2 * b * h * (s_q + s_k) * (hd + hd_v) + 8 * b * h * s_q + 2 * b * h * written
+    return n_bytes, 2 * b * h * s_q * s_k * (2 * hd + (products - 2) * hd_v) * frac
 
 
 def train_sample_flops(model: Dict, n: int, labels: int) -> int:

@@ -9,6 +9,9 @@ per-layer metric is a file of its own, found by its name:
   traffic names, and which metrics the cell reports;
 * ``portbench/workloads/<cell>.json``: the cell's parameters and limits;
 * ``portbench/configs/<config>.json``: the model, its yml and its sizes;
+* ``portbench/families/<family>.py``: the reference, weights, model FLOPs
+  and kernel costs of the language-model family the configuration's
+  ``model.family`` names (absent: ``gptj``);
 * ``portbench/traffic/<traffic>.py``: ``run(ctx) -> Outcome``;
 * ``portbench/metrics/<metric>.py``: ``read(record) -> float or None``.
 """
@@ -33,12 +36,20 @@ def load_json(path: Path) -> Dict:
 
 
 def load_module(path: Path):
-    """A harness file (a driver or a metric) by path, as its own module."""
+    """A harness file (a driver, a metric or a family) by path, as its own
+    module."""
     name = "portbench_" + "_".join(path.with_suffix("").parts[-2:]).replace(".", "_")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def family(model: Dict, root: Path = HERE):
+    """The module of the language-model family a configuration's ``model``
+    names: ``<root>/families/<model["family"]>.py``, ``gptj`` where it names
+    none (``families/gptj.py`` says what a family module gives)."""
+    return load_module(root / "families" / f"{model.get('family', 'gptj')}.py")
 
 
 @dataclasses.dataclass
@@ -72,6 +83,9 @@ class Cell:
 
     def metric(self, name: str) -> Callable:
         return load_module(self.root / "metrics" / f"{name}.py").read
+
+    def family(self):
+        return family(self.config["model"], self.root)
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 """Shared pieces of the traffic drivers that serve captions: the program's
-set-up from the seed, the requests' inputs as a client hands them over, the
-kernel wrappers the roofline metrics log, the sampler probe and the model
-FLOPs of a request.
+set-up from the seed (the weights of the cell's language-model family), the
+requests' inputs as a client hands them over, the kernel wrappers the
+roofline metrics log, the sampler probe and the model FLOPs of a request.
 
 The client side of a request: its uint8 images go through the program's
 ``preprocess_uint8_batch`` (host to card, resize, crop, normalise), its text
@@ -11,16 +11,11 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-QUANT, DECODE = "magma_tpu_torch.ops.quant", "magma_tpu_torch.ops.decode_layer"
-
-
-def _pos(t):
-    """A cache position as given: a device tensor is cloned, read later."""
-    return t.clone() if hasattr(t, "clone") else t
-
+QUANT = "magma_tpu_torch.ops.quant"
 
 # the program's kernel wrappers whose launches the roofline metrics cost:
-# name -> (module, what a call records)
+# name -> (module, what a call records); a family adds its own
+# (``WRAPPERS``)
 INT8_WRAPPERS = {
     "int8_matmul_kernel": (QUANT, lambda a, k: ("k2", a[0].shape[0], a[0].shape[1],
                                                 a[1].shape[-1])),
@@ -30,10 +25,6 @@ INT8_WRAPPERS = {
                                                 a[1].shape[1], a[2].shape[-1])),
     "fused_adapter_kernel": (QUANT, lambda a, k: ("k5", a[0].shape[0], a[0].shape[1],
                                                   a[1]["wd"].shape[-1])),
-}
-K8_WRAPPERS = {
-    "decode_all_layers_kernel": (DECODE, lambda a, k: (
-        "k8", _pos(a[7] if len(a) > 7 else k["cache_pos"]), a[4].element_size())),
 }
 # the program's sampler, as ``generate`` calls it through its module
 SAMPLER = ("magma_tpu_torch.ops.sampling", "sample_token")
@@ -89,9 +80,8 @@ def setup_model(ctx):
     """The program over the cell's configuration and the seed's weights, in
     its serving layout."""
     from portbench.harness import build_magma
-    from portbench.weights import make_weights
 
-    weights = make_weights(ctx.cell.config["model"], ctx.seed, ctx.device)
+    weights = ctx.cell.family().make_weights(ctx.cell.config["model"], ctx.seed, ctx.device)
     model = build_magma(ctx.cell, weights, ctx.device)
     del weights
     return model
@@ -122,22 +112,17 @@ def image_tokens(model_cfg) -> int:
     return (model_cfg["tower"]["input_resolution"] // 32) ** 2
 
 
-def adapter_widths(model_cfg) -> List[int]:
-    d = model_cfg["lm"]["d_model"]
-    return [d // a["downsample_factor"] for a in model_cfg.get("adapters", {}).values()]
-
-
-def request_flops(model_cfg, req, n_tokens: int) -> int:
+def request_flops(fam, model_cfg, req, n_tokens: int) -> int:
     """The model FLOPs a finished request required: its images through the
     tower and the projection, its true prompt positions through the LM, and
-    each served token after the first (the prefill's) through the LM."""
+    each served token after the first (the prefill's) through the LM (the
+    LM's counts: the family module ``fam``'s)."""
     from portbench import cost
 
-    lm, widths = model_cfg["lm"], adapter_widths(model_cfg)
     s = req.text_len() + image_tokens(model_cfg) * req.n_images()
-    flops = req.n_images() * cost.tower_flops(model_cfg["tower"], lm["d_model"])
-    flops += cost.prompt_flops(lm, widths, s)
-    flops += sum(cost.lm_token_flops(lm, widths, s + k + 1) for k in range(max(n_tokens - 1, 0)))
+    flops = req.n_images() * cost.tower_flops(model_cfg["tower"], model_cfg["lm"]["d_model"])
+    flops += fam.prompt_flops(model_cfg, s)
+    flops += sum(fam.lm_token_flops(model_cfg, s + k + 1) for k in range(max(n_tokens - 1, 0)))
     return flops
 
 

@@ -17,10 +17,10 @@ if str(REPO) not in sys.path:
 
 
 def make_root(tmp: Path) -> Path:
-    """A portbench-like root in ``tmp``: traffic/ and metrics/ copied from the
-    harness, configs/ and workloads/ from the test data."""
+    """A portbench-like root in ``tmp``: traffic/, metrics/ and families/
+    copied from the harness, configs/ and workloads/ from the test data."""
     root = tmp / "portbench"
-    for sub in ("traffic", "metrics"):
+    for sub in ("traffic", "metrics", "families"):
         shutil.copytree(PORTBENCH / sub, root / sub)
     for sub in ("configs", "workloads"):
         shutil.copytree(HERE / "data" / sub, root / sub)

@@ -56,6 +56,27 @@ def test_flash_forward_and_backward():
     assert f == pytest.approx(6 * b * h * s * s * hd * tri)
 
 
+def test_flash_at_qk_192_and_v_128():
+    """Latent attention's head dims (qk 128 + 64 rope, v 128): Q K^T, dQ and
+    dK count 192, P V, dP and dV count 128, as do the bytes of v, o, dO and
+    dV."""
+    b, s, h, qk, v = 4, 2048, 16, 192, 128
+    tri = (s + 1) / (2 * s)
+    reads = 2 * b * s * h * qk + 2 * b * s * h * qk + 2 * b * s * h * v  # q, k, v
+    nb, f = cost.flash_fwd(b, s, s, h, qk, True, v)
+    assert nb == reads + 2 * b * s * h * v + 4 * b * h * s  # o, lse
+    assert f == pytest.approx((2 * b * h * s * s * qk + 2 * b * h * s * s * v) * tri)
+    reads += 2 * b * s * h * v + 4 * b * h * s + 4 * b * h * s  # dO, lse, delta
+    nb, f = cost.flash_bwd(b, s, s, h, qk, True, v, products=4, outputs=2)
+    assert nb == reads + 2 * b * s * h * qk + 2 * b * s * h * v  # dK, dV
+    # S, dP, dV, dK
+    assert f == pytest.approx(2 * b * h * s * s * (qk + v + v + qk) * tri)
+    nb, f = cost.flash_bwd(b, s, s, h, qk, True, v, products=3, outputs=1)
+    assert nb == reads + 2 * b * s * h * qk  # dQ
+    # S, dP, dQ
+    assert f == pytest.approx(2 * b * h * s * s * (qk + v + qk) * tri)
+
+
 def test_model_flops():
     one = cost.lm_token_flops(LM, [1024], context=10, head=True)
     layer = 2 * (4096 * (3 * 4096 + 16384) + 4096 * 4096 + 16384 * 4096 + 2 * 4096 * 1024)
@@ -82,3 +103,16 @@ def test_roofline_share_reduction():
     assert rooflines.share(rec, "int8") == pytest.approx(100 * 2 * least / 2e-4)
     assert rooflines.share(rec, "k8") is None
     assert rooflines.share({"trace": None}, "int8") is None
+
+
+def test_flash_share_reads_v_head_dim():
+    """A K1 launch logged with its v head dim (the wrapper's last field) is
+    costed at it; one logged without it, as before, at q's."""
+    kernels = {"void (anonymous namespace)::flash_fwd_wgmma<192>(Params)": [1e-3]}
+    at = {hd_v: cost.least_s(*cost.flash_fwd(2, 2048, 2048, 16, 192, True, hd_v))
+          for hd_v in (128, 192)}
+    for call, hd_v in ((("k1", 2, 2048, 2048, 16, 192, True, 128), 128),
+                       (("k1", 2, 2048, 2048, 16, 192, True), 192)):
+        rec = {"model": {"lm": LM}, "trace": {"kernels": kernels, "calls": [call]}}
+        assert rooflines.share(rec, "flash") == pytest.approx(100 * at[hd_v] / 1e-3)
+    assert at[128] < at[192]

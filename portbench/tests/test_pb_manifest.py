@@ -92,40 +92,19 @@ def test_files_found_by_name():
 
 
 def test_configs_state_what_the_program_builds():
+    """Each configuration file against its entry, then, through its
+    language-model family's ``check_config``, against what the program
+    builds from its ``yml``."""
     from magma_tpu_torch.config import MultimodalConfig
-    from magma_tpu_torch.models.magma import build_lm_config, build_prefix_config
+    from magma_tpu_torch.models.magma import Magma
+    from portbench.harness import family
 
     for c in BENCH["configs"]:
         f = json.loads((REPO / c["file"]).read_text())
         assert f["name"] == c["name"] and f["source"] == c["source"]
-        assert f["reduced"] == c["reduced"] == []
-        cfg = MultimodalConfig(**f["yml"])
-        lm = build_lm_config(cfg)
-        want = f["model"]["lm"]
-        assert (lm.n_layers, lm.d_model, lm.n_heads, lm.d_ff, lm.rotary_dim, lm.vocab_size,
-                lm.padded_vocab_size, lm.max_seq_len) == (
-            want["n_layers"], want["d_model"], want["n_heads"], want["d_ff"],
-            want["rotary_dim"], want["vocab_size"], want["padded_vocab_size"],
-            want["max_seq_len"])
-        for where, spec in (("mlp", lm.mlp_adapter), ("attention", lm.attn_adapter)):
-            got = f["model"]["adapters"].get(where)
-            assert (spec is None) == (got is None)
-            if spec:
-                assert spec.downsample_factor == got["downsample_factor"]
-                assert spec.adapter_type == got["adapter_type"]
-        enc = build_prefix_config(cfg, lm).encoder[1]
-        tw = f["model"]["tower"]
-        assert (enc.width, tuple(enc.blocks), enc.input_resolution) == (
-            tw["width"], tuple(tw["blocks"]), tw["input_resolution"])
-        assert cfg.use_image_embed_layernorm == f["model"]["image_prefix"]["layernorm"]
-        if "recipe" in f:
-            r = f["recipe"]
-            assert (cfg.lr, cfg.min_lr, cfg.warmup_num_steps, cfg.lr_decay_iters,
-                    cfg.image_enc_lr, cfg.weight_decay, cfg.gradient_clipping,
-                    cfg.image_embed_dropout_prob) == (
-                r["lr"], r["min_lr"], r["warmup_num_steps"], r["lr_decay_iters"],
-                r["image_enc_lr"], r["weight_decay"], r["clip"], r["dropout"])
-            assert enc.bn_momentum == r["bn_momentum"]
+        assert f["reduced"] == c["reduced"]
+        program = Magma(MultimodalConfig(**f["yml"]), device="cpu", init_weights=False)
+        family(f["model"]).check_config(f, program)
 
 
 def test_run_seconds_fits_the_check():

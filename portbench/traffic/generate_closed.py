@@ -9,10 +9,11 @@ questions: every shape the window runs)."""
 
 import math
 import time
+from pathlib import Path
 
 from portbench.mix import image_bank, make_requests
-from portbench.serve import (INT8_WRAPPERS, K8_WRAPPERS, SamplerProbe, prompt_inputs,
-                             request_flops, sampling_kw, setup_model, slice_steps)
+from portbench.serve import (INT8_WRAPPERS, SamplerProbe, prompt_inputs, request_flops,
+                             sampling_kw, setup_model, slice_steps)
 from portbench.trace import Slice, span
 
 
@@ -41,7 +42,7 @@ def run(ctx):
 
     from portbench.harness import Outcome
 
-    p = ctx.cell.params
+    p, fam = ctx.cell.params, ctx.cell.family()
     requests = make_requests(p["mix"], ctx.seed)
     bank = image_bank(p["mix"], ctx.seed)
     model = setup_model(ctx)
@@ -65,7 +66,7 @@ def run(ctx):
         req = requests[n % len(requests)]
         n += 1
         if i in traced and sl is None:
-            sl = Slice({**K8_WRAPPERS, **INT8_WRAPPERS})
+            sl = Slice({**INT8_WRAPPERS, **fam.WRAPPERS.get(Path(__file__).stem, {})})
             sl.__enter__()
         due = time.perf_counter()
         tokens, timing, ev = _one(ctx, model, req, bank)
@@ -88,8 +89,8 @@ def run(ctx):
         "decode_ms": sum(r["timing"]["decode_ms"] for r in plain),
         "decode_steps": sum(max(r["timing"]["steps"] - 1, 0) for r in plain),
         # mfu's work and time leave out the traced requests, which the profiler slows
-        "mfu_flops": sum(request_flops(ctx.cell.config["model"], r["req"], len(r["tokens"]))
-                         for r in plain),
+        "mfu_flops": sum(request_flops(fam, ctx.cell.config["model"], r["req"],
+                                       len(r["tokens"])) for r in plain),
         "mfu_s": sum(r["ms"] for r in plain) / 1e3,
         "trace": sl.reduce() if sl is not None else None,
         "model": ctx.cell.config["model"], "bank": bank,

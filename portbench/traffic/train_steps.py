@@ -4,13 +4,15 @@ step's rows new (``portbench/feed.py``), the images preprocessed on the card
 by ``preprocess_uint8_batch``.  Measures the samples of the whole steps done
 in the window over their time.
 
-Set-up builds one Trainer from the seed's weights and drives it through its
-first ``check_steps`` steps with the window's own call and feed; the
-comparison follows those steps (their losses, the first gradient as the
-optimizer took it, the parameters and BatchNorm statistics after them).
-The same Trainer then runs the window."""
+Set-up builds one Trainer from the seed's weights (those of the cell's
+language-model family) and drives it through its first ``check_steps``
+steps with the window's own call and feed; the comparison follows those
+steps (their losses, the first gradient as the optimizer took it, the
+parameters and BatchNorm statistics after them).  The same Trainer then
+runs the window."""
 
 import time
+from pathlib import Path
 
 from portbench.feed import batch
 from portbench.trace import Slice, span
@@ -20,9 +22,9 @@ FLASH = "magma_tpu_torch.ops.flash_attention"
 
 def _flash(kind):
     def extract(a, k):
-        q, kk = a[0], a[1]
+        q, kk, v = a[0], a[1], a[2]
         return (kind, q.shape[0], q.shape[1], kk.shape[1], q.shape[2], q.shape[3],
-                bool(k.get("causal", True)))
+                bool(k.get("causal", True)), v.shape[3])
     return extract
 
 
@@ -36,14 +38,12 @@ def run(ctx):
 
     from magma_tpu_torch.ops.preprocess import preprocess_uint8_batch
     from magma_tpu_torch.training.train_loop import Trainer
-    from portbench import cost
     from portbench.harness import Outcome, build_magma
     from portbench.reference.train_ref import paths
-    from portbench.weights import make_weights
 
-    p = ctx.cell.params
+    p, fam = ctx.cell.params, ctx.cell.family()
     model_cfg = ctx.cell.config["model"]
-    weights = make_weights(model_cfg, ctx.seed, ctx.device)
+    weights = fam.make_weights(model_cfg, ctx.seed, ctx.device)
     model = build_magma(ctx.cell, weights, ctx.device)
     del weights
     model.config.seed = int(ctx.seed)  # the dropout bits' seed
@@ -79,7 +79,7 @@ def run(ctx):
     while time.perf_counter() - t0 < ctx.seconds:
         i = len(ends)
         if i in traced:
-            sl = Slice(FLASH_WRAPPERS)
+            sl = Slice({**FLASH_WRAPPERS, **fam.WRAPPERS.get(Path(__file__).stem, {})})
             sl.__enter__()
         x, caps = rows(step)
         with span("train_step"):
@@ -96,10 +96,10 @@ def run(ctx):
     for i in range(len(ends)):
         caps = batch(p, ctx.seed, p["check_steps"] + i, seq, eos)[1]
         lengths = [int((c == eos).argmax()) if (c == eos).any() else seq for c in caps]
-        flops = sum(cost.train_sample_flops(model_cfg, min(n_img + k, seq - 1),
-                                            min(k + 1, seq - n_img)) for k in lengths)
+        flops = sum(fam.train_sample_flops(model_cfg, min(n_img + k, seq - 1),
+                                           min(k + 1, seq - n_img)) for k in lengths)
         true += flops
-        padded += len(lengths) * cost.train_sample_flops(model_cfg, seq, seq - n_img)
+        padded += len(lengths) * fam.train_sample_flops(model_cfg, seq, seq - n_img)
         if i not in traced:  # mfu leaves out the traced step, which the profiler slows
             mfu_flops += flops
     ctx.log(f"[train] window {window_s:.3f} s, {len(ends)} steps, {n_samples} samples; "
